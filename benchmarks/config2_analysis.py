@@ -19,9 +19,8 @@ from config5_analysis import chain_auc
 
 
 def main():
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from pyglm_tpu.utils.utils import enable_compile_cache
+    enable_compile_cache()
     import pyglm_tpu as pt
 
     N, T = 50, 20_000

@@ -141,8 +141,7 @@ def run_long(args):
     S up to ~16k and whether/when it crosses 0.88 (VERDICT r2 'config 5'
     primary done-criterion). Sweeps run as on-device lax.scan segments
     (fit_compiled's shape — no per-sweep host dispatch; one (N, N)
-    adjacency-sum readback per segment), so 16k sweeps is ~12 min on one
-    chip at the r3 sweep rate."""
+    adjacency-sum copy to the host per segment)."""
     from functools import partial
 
     import jax
@@ -478,8 +477,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from pyglm_tpu.utils.utils import enable_compile_cache
+    enable_compile_cache()
     if args.ess:
         run_ess(args)
         return

@@ -67,8 +67,8 @@ def main():
             prev = json.load(f)
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from pyglm_tpu.utils.utils import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import pyglm_tpu as pt
     from pyglm_tpu.models.tempering import (init_tempered_states,

@@ -1,12 +1,12 @@
 """Ensemble throughput: sequential chains vs the lane-stacked sweep.
 
 Measures aggregate chain-sweeps/sec for a C-chain ensemble at the
-BASELINE config-1 scale (N=27, T=60k — a small model that fills ~21% of
-one 128-lane tile, the regime the lane-stacked design targets) and at a
-mid-size N=100. Methodology as bench.py: scanned sweeps inside one jit,
-readback-amortized, datas as arguments.
+BASELINE config-1 scale (N=27, T=60k — a small model whose per-edge steps
+leave the device mostly idle, the regime the lane-stacked design targets)
+and at a mid-size N=100. Methodology as bench.py: scanned sweeps inside
+one jit, timed to block_until_ready, datas as arguments.
 
-Run on TPU: python benchmarks/ensemble_bench.py [--small]
+Run on a GPU: python benchmarks/ensemble_bench.py [--small]
 """
 import json
 import os
@@ -21,8 +21,8 @@ N_WARMUP, N_TIMED = 2, 30
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from pyglm_tpu.utils.utils import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     import pyglm_tpu as pt
@@ -47,14 +47,14 @@ def main():
 
         def timed(run, state):
             for i in range(N_WARMUP):
-                state, lls = run(jax.random.key(i), state, datas)
-                np.asarray(jax.tree.leaves(lls)[0]).sum()  # host sync
+                state, lls = jax.block_until_ready(
+                    run(jax.random.key(i), state, datas))
             reps = []
             for i in range(3):
-                t0 = time.time()
-                state, lls = run(jax.random.key(50 + i), state, datas)
-                np.asarray(jax.tree.leaves(lls)[0]).sum()
-                reps.append((time.time() - t0) / N_TIMED)
+                t0 = time.perf_counter()
+                state, lls = jax.block_until_ready(
+                    run(jax.random.key(50 + i), state, datas))
+                reps.append((time.perf_counter() - t0) / N_TIMED)
             return float(np.median(reps))
 
         # -- sequential baseline: one chain on the model's sweep ----------

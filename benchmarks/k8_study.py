@@ -14,13 +14,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache_cpu")
 
 import numpy as np
 import jax.numpy as jnp
 from scipy.stats import ks_2samp
 
 from pyglm_tpu.ops.polyagamma import pg_gamma_series
+from pyglm_tpu.utils.utils import enable_compile_cache
+
+enable_compile_cache()
 from pyglm_tpu.native import native_available, pg_int_b_native
 
 N = 200_000

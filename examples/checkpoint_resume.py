@@ -6,6 +6,7 @@ reference's pickle-by-convention approach.
 """
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))  # zero-install run
 
@@ -19,7 +20,7 @@ Y = model.generate(5000, keep=True)
 for _ in range(20):
     model.resample_model()
 
-path = "/tmp/pyglm_chain.npz"
+path = os.path.join(tempfile.gettempdir(), "pyglm_chain.npz")
 save_state(path, model)
 print(f"saved chain state to {path}")
 

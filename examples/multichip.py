@@ -1,9 +1,9 @@
 """Demo: neuron+time-sharded SPMD Gibbs over a device mesh (BASELINE
 config 5: latent-distance prior, N=500, multi-chip).
 
-On a single-chip box, simulate devices first:
+On a machine with one device, simulate devices first:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 python examples/multichip.py
-(with jax platform forced to cpu; on a real TPU pod slice it runs as-is).
+(with jax platform forced to cpu; on a multi-GPU host it runs as-is).
 """
 import os
 import sys

@@ -1,9 +1,9 @@
-"""Drop-in API surface of the ``pypolyagamma`` package, TPU-backed.
+"""Drop-in API surface of the ``pypolyagamma`` package, on JAX devices.
 
 Reference surface (pypolyagamma/pypolyagamma.pyx): a stateful
 ``PyPolyaGamma(seed)`` object with ``pgdraw``/``pgdrawv``, and module-level
 ``pgdrawvpar(ppgs, ns, zs, out)`` that fans a draw vector over OpenMP
-threads. Here every method lowers to the same vectorized TPU samplers; the
+threads. Here every method lowers to the same vectorized JAX samplers; the
 "parallel" variant is identical to the serial one (the hardware is already
 data-parallel) and accepts the list-of-generators argument purely for
 API compatibility. `out` is filled in place (numpy) like the reference.
@@ -53,7 +53,7 @@ def pgdrawv(ns, zs, out=None, seed: int = 0):
 
 def pgdrawvpar(ppgs, ns, zs, out=None):
     """Reference signature: list of per-thread PyPolyaGamma objects + draw
-    vectors. The draw is already fully data-parallel on TPU; like the
+    vectors. The draw is already fully data-parallel on the device; like the
     reference's OpenMP static schedule, the vector is partitioned into
     contiguous chunks, one per generator, and each chunk consumes ITS
     generator's stream — so per-generator seed reproducibility matches the

@@ -28,6 +28,10 @@ from pyglm_tpu.ops.linalg import (
 )
 from pyglm_tpu.utils.utils import expand_cov, expand_scalar, logit
 
+# Network-prior contractions feed conjugate and HMC acceptance steps: full
+# f32, never the backend's reduced-precision default (TF32 on a GPU).
+_F32 = lax.Precision.HIGHEST
+
 
 def _bias_hypers(cfg, N):
     """Bias prior hypers; mu_bias / sigma_bias may be scalar or (N,) —
@@ -80,7 +84,7 @@ def _masked_niw_resample(key, cfg, W, mask):
     n = jnp.sum(mask)
     xbar = jnp.sum(m * W, axis=(0, 1)) / jnp.maximum(n, 1e-12)
     diffs = (W - xbar) * m
-    S = jnp.einsum("ijb,ijc->bc", diffs, diffs)
+    S = jnp.einsum("ijb,ijc->bc", diffs, diffs, precision=_F32)
     post = niw_posterior(_niw_params(cfg), n, xbar, S)
     return sample_niw(key, post)
 
@@ -295,7 +299,8 @@ class SBMConfig:
         logdet = 2 * jnp.sum(
             jnp.log(jnp.diagonal(C, axis1=-2, axis2=-1)), axis=-1)  # (K,K)
         d = W[None, None] - state.mu[:, :, None, None]        # (K,K,N,N,B)
-        quad = jnp.einsum("xyijb,xybc,xyijc->xyij", d, Lam, d)
+        quad = jnp.einsum("xyijb,xybc,xyijc->xyij", d, Lam, d,
+                          precision=_F32)
         logN = -0.5 * (quad + logdet[:, :, None, None]
                        + B * jnp.log(2 * jnp.pi))
         return logB + A[None, None] * logN
@@ -322,8 +327,8 @@ class SBMConfig:
             # tbl[x, x, n, n] once.
             self_mask = 1.0 - jax.nn.one_hot(n, N)
             masked = onehot * self_mask[:, None]
-            ll_out = jnp.einsum("xpm,mp->x", out_t, masked)
-            ll_in = jnp.einsum("pxm,mp->x", in_t, masked)
+            ll_out = jnp.einsum("xpm,mp->x", out_t, masked, precision=_F32)
+            ll_in = jnp.einsum("pxm,mp->x", in_t, masked, precision=_F32)
             self_t = lax.dynamic_slice(out_t, (0, 0, n), (K, K, 1))[:, :, 0]
             ll_self = jnp.diagonal(self_t)
             logits = jnp.log(state.pi + 1e-12) + ll_out + ll_in + ll_self
@@ -336,18 +341,20 @@ class SBMConfig:
         # --- block hyperparameters ---------------------------------------
         counts = jnp.sum(onehot, axis=0)                      # (K,)
         pi = jax.random.dirichlet(k_pi, self.alpha_pi + counts)
-        pair = jnp.einsum("ix,jy->xyij", onehot, onehot)      # (K,K,N,N)
+        pair = jnp.einsum("ix,jy->xyij", onehot, onehot,
+                          precision=_F32)                 # (K,K,N,N)
         n_pair = jnp.sum(pair, axis=(2, 3))
-        n_act = jnp.einsum("xyij,ij->xy", pair, A)
+        n_act = jnp.einsum("xyij,ij->xy", pair, A, precision=_F32)
         rho = jax.random.beta(k_rho, self.a_rho + n_act,
                               self.b_rho + n_pair - n_act)
 
         mask = pair * A[None, None]                           # (K,K,N,N)
         n_w = jnp.sum(mask, axis=(2, 3))
-        xbar = (jnp.einsum("xyij,ijb->xyb", mask, W)
+        xbar = (jnp.einsum("xyij,ijb->xyb", mask, W, precision=_F32)
                 / jnp.maximum(n_w, 1e-12)[..., None])
         d = W[None, None] - xbar[:, :, None, None]
-        S = jnp.einsum("xyij,xyijb,xyijc->xybc", mask, d, d)
+        S = jnp.einsum("xyij,xyijb,xyijc->xybc", mask, d, d,
+                       precision=_F32)
         niw0 = _niw_params(self)
 
         def block_niw(kk, n, xb, Sb):
@@ -453,8 +460,7 @@ class LatentDistanceConfig:
         """Closed-form gradient of the HMC potential — the autodiff
         backward pass materializes the (N, N, dim) broadcast intermediates
         of d2 twice; this form needs one (N, N) @ (N, dim) matmul and row
-        sums (measured ~1.5x faster per leapfrog step at N=500, and
-        asserted equal to jax.grad in tests/test_networks.py).
+        sums (asserted equal to jax.grad in tests/test_networks.py).
 
         With w = sigmoid(lrho) - A (= dU/dlrho) and ws = w + w':
           dU/dl_k = 2 [ (ws @ L)_k - rowsum(ws)_k l_k ] + l_k / sigma_l^2
@@ -464,7 +470,8 @@ class LatentDistanceConfig:
         lrho = self._logit_rho(L, gamma)
         w = jax.nn.sigmoid(lrho) - A
         ws = w + w.T
-        gL = (2.0 * (ws @ L - jnp.sum(ws, axis=1)[:, None] * L)
+        gL = (2.0 * (jnp.matmul(ws, L, precision=_F32)
+                     - jnp.sum(ws, axis=1)[:, None] * L)
               + L / self.sigma_l ** 2)
         gg = jnp.sum(w) + gamma / self.sigma_gamma ** 2
         return gL, gg

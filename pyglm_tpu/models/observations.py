@@ -212,10 +212,9 @@ class NegativeBinomial(_FamilyBase):
         # sum_t gammaln(y_tn + r_n) depends on the data only through the
         # per-neuron count tallies #{t : y_tn = k}: precompute the
         # (max_y+1, N) table once so the per-sweep total LL evaluates
-        # (max_y+1)*N gammalns instead of T*N (~2.3 ms/sweep at the NB
-        # flagship shapes, where gammaln at 20M elements dominated the LL
-        # stage — see BASELINE.md r3 NB ledger). The same table feeds the
-        # collapsed-CRT r update (resample_aux).
+        # (max_y+1)*N gammalns instead of T*N (20M at the NB flagship
+        # shapes, where gammaln dominated the LL stage). The same table
+        # feeds the collapsed-CRT r update (resample_aux).
         K = self.max_y + 1
         if isinstance(Y, jax.core.Tracer):
             # Traced path (the Geweke successive-conditional simulator
@@ -277,9 +276,9 @@ class NegativeBinomial(_FamilyBase):
             # an EXACT regrouping. Trial counts come from the cached
             # (max_y+1, N) count table (the same one the LL normalizer
             # contracts against), so the 20M-element x max_y-pass CRT
-            # kernel collapses to max_y*N binomial draws (~3 ms -> ~0.1 ms
-            # at the NB flagship). i = 0 has p = 1 (every y > 0 seats a
-            # first table) and is added deterministically.
+            # loop collapses to max_y*N binomial draws at the NB flagship.
+            # i = 0 has p = 1 (every y > 0 seats a first table) and is
+            # added deterministically.
             counts = cache["counts"]                     # (max_y+1, N)
             K = counts.shape[0]
             # m[i] = #{t : y_tn > i} for i = 0..K-2 (suffix sums)

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from pyglm_tpu.models.weights import (
-    pack_weights, unpack_weights, sufficient_stats,
+    einsum_at, pack_weights, unpack_weights, sufficient_stats,
     resample_spike_slab_tspace, resample_dense,
 )
 
@@ -23,9 +23,9 @@ from pyglm_tpu.models.weights import (
 class GLMData(NamedTuple):
     Y: jax.Array    # (T, N) observations
     Xf: jax.Array   # (T, P) flattened design (P = N*B+1, last col = ones)
-    # Transposed design (P, T), materialized once at add_data: the Pallas
-    # Gram kernel and the residual-space group matmuls consume the design
-    # presyn-major, and transposing 320 MB per sweep costs ~1.5 ms.
+    # Transposed design (P, T), materialized once at add_data: the
+    # residual-space group matmuls consume the design presyn-major, so it
+    # is not re-transposed on every sweep.
     Xt: object = None
     # Cached unweighted Gram statistics (Gaussian observations only — there
     # omega = 1/eta_n is constant over time, so X'OmegaX = Gram / eta_n and
@@ -73,17 +73,13 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
         gaussian_cached = (not obs.needs_pg
                            and all(d.Gg0 is not None for d in datas))
 
-        from pyglm_tpu.models.weights import _PRECISIONS
-        prec = _PRECISIONS[precision]
         if spike_slab:
             # Residual-space collapsed update: O(N^2 T B), no Gram stack.
             # Datasets concatenate along time (designs never cross datasets).
             Xf_cat = jnp.concatenate([d.Xf for d in datas], axis=0)
             Xt_cat = (jnp.concatenate([d.Xt for d in datas], axis=1)
                       if all(d.Xt is not None for d in datas) else None)
-            psi = jnp.dot(Xf_cat, w_full,
-                          preferred_element_type=jnp.float32,
-                          precision=prec)
+            psi = einsum_at("tp,pn->tn", Xf_cat, w_full, precision)
             omega, kappa = obs.omega_kappa(k_pg, Y_cat, psi, state.aux)
             Jg = None
             if gaussian_cached:
@@ -108,9 +104,7 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
                 J_tot = jnp.zeros((N, P, P), jnp.float32)
                 h_tot = jnp.zeros((P, N), jnp.float32)
                 for i, d in enumerate(datas):
-                    psi = jnp.dot(d.Xf, w_full,
-                                  preferred_element_type=jnp.float32,
-                                  precision=prec)
+                    psi = einsum_at("tp,pn->tn", d.Xf, w_full, precision)
                     omega, kappa = obs.omega_kappa(
                         jax.random.fold_in(k_pg, i), d.Y, psi, state.aux)
                     J, h = sufficient_stats(
@@ -121,8 +115,8 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
             w_full = resample_dense(k_w, J_tot, h_tot, hyp, B)
             A = jnp.ones((N, N), jnp.float32)
             psi_cat = jnp.concatenate(
-                [jnp.dot(d.Xf, w_full, preferred_element_type=jnp.float32,
-                         precision=prec) for d in datas], axis=0)
+                [einsum_at("tp,pn->tn", d.Xf, w_full, precision)
+                 for d in datas], axis=0)
 
         W, b = unpack_weights(w_full, N, B)
         # Dataset ll caches are additive summaries (counts / scalar sums),
@@ -145,13 +139,9 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
 
 
 def make_log_likelihood(obs, N: int, B: int, precision: str = "highest"):
-    from pyglm_tpu.models.weights import _PRECISIONS
-    prec = _PRECISIONS[precision]
-
     def log_likelihood(state: GLMState, data: GLMData):
         w_full = pack_weights(state.A, state.W, state.b)
-        psi = jnp.dot(data.Xf, w_full,
-                      preferred_element_type=jnp.float32, precision=prec)
+        psi = einsum_at("tp,pn->tn", data.Xf, w_full, precision)
         return jnp.sum(obs.log_likelihood(data.Y, psi, state.aux))
     return log_likelihood
 
@@ -170,8 +160,10 @@ def make_generator(obs, N: int, B: int):
 
         def step(ring, k_t):
             # X[t, j, b] = sum_i ring[i, j] * basis_rev[i, b]
-            F = jnp.einsum("ij,ib->jb", ring, basis_rev)
-            psi = state.b + jnp.einsum("jb,jnb->n", F, Weff)
+            F = jnp.einsum("ij,ib->jb", ring, basis_rev,
+                           precision=lax.Precision.HIGHEST)
+            psi = state.b + jnp.einsum("jb,jnb->n", F, Weff,
+                                       precision=lax.Precision.HIGHEST)
             y = obs.sample(k_t, psi[None, :], state.aux)[0]
             ring = jnp.concatenate([ring[1:], y[None, :]], axis=0)
             return ring, (y, psi)
@@ -199,8 +191,8 @@ def init_state_from_prior(key, obs, network, N: int, B: int,
         A = jnp.ones((N, N), jnp.float32)
     # W_ij ~ N(mu_ij, Lam_ij^{-1}) batched over all N^2 edges. With
     # Lam = L L', x = mu + L^{-T} eps has covariance L^{-T} L^{-1} = Lam^{-1}
-    # — no batched-LAPACK inv/cholesky (17 ms on 40k 4x4 blocks; the
-    # unrolled small-B forms fuse to elementwise code).
+    # — no batched library inv/cholesky over 40k 4x4 blocks; the unrolled
+    # small-B forms fuse to elementwise code.
     from pyglm_tpu.ops.linalg import chol_small, solve_lower_t_small
     eps = jax.random.normal(k_w, (N, N, B))
     W = hyp.mu + solve_lower_t_small(chol_small(hyp.Lam), eps)

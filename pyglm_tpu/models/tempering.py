@@ -34,7 +34,7 @@ ladder from a measured sd(ll). See BASELINE.md config-5 for the measured
 verdict on this model family.
 
 Reference analog: none — pyglm has no tempering or multi-chain machinery
-(SURVEY.md §3.5); this rides the TPU lane-stacked ensemble, where the
+(SURVEY.md §3.5); this rides the lane-stacked ensemble, where the
 marginal cost of a rung is its omega/u lanes only.
 """
 from __future__ import annotations
@@ -45,7 +45,7 @@ import numpy as np
 
 from pyglm_tpu.models.ensemble import _from_lanes, _to_lanes, stack_states
 from pyglm_tpu.models.sweep import GLMState, init_state_from_prior
-from pyglm_tpu.models.weights import (EdgeHypers, _PRECISIONS, pack_weights,
+from pyglm_tpu.models.weights import (EdgeHypers, einsum_at, pack_weights,
                                       resample_spike_slab_tspace,
                                       sufficient_stats, unpack_weights)
 
@@ -121,8 +121,6 @@ def _make_tempered_pass(obs, network, N: int, B: int, C: int,
     (new_st, lls (C,), n_edges (C,)). Factored out so the single-device
     sweep and the chain-mesh shard_map body (make_tempered_sweep_sharded,
     where C is the per-device rung count) share one implementation."""
-    prec = _PRECISIONS[precision]
-
     def gibbs(k_pg, k_w, k_net, st: GLMState, datas: tuple, betas):
         beta_lane = jnp.repeat(betas, N)        # (C*N,)
         w_lane = _to_lanes(jax.vmap(pack_weights)(st.A, st.W, st.b))
@@ -137,8 +135,7 @@ def _make_tempered_pass(obs, network, N: int, B: int, C: int,
         Xf_cat = jnp.concatenate([d.Xf for d in datas], axis=0)
         T = Y_cat.shape[0]
 
-        psi = jnp.dot(Xf_cat, w_lane, preferred_element_type=jnp.float32,
-                      precision=prec)
+        psi = einsum_at("tp,pn->tn", Xf_cat, w_lane, precision)
         aux_lane = jax.tree.map(
             lambda x: x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:]),
             st.aux)
@@ -160,9 +157,7 @@ def _make_tempered_pass(obs, network, N: int, B: int, C: int,
             from pyglm_tpu.models.weights import resample_dense
             w_lane = resample_dense(k_w, J, h, hyp, B)
             A_lane = jnp.ones((N, C * N), jnp.float32)
-            psi_cat = jnp.dot(Xf_cat, w_lane,
-                              preferred_element_type=jnp.float32,
-                              precision=prec)
+            psi_cat = einsum_at("tp,pn->tn", Xf_cat, w_lane, precision)
 
         w_c = _from_lanes(w_lane, C)
         W, b = jax.vmap(unpack_weights, in_axes=(0, None, None))(w_c, N, B)
@@ -228,8 +223,6 @@ def make_tempered_sweep_sharded(obs, network, N: int, B: int, betas, mesh,
     device. Reference analog: none (SURVEY.md §3.5)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pyglm_tpu.parallel.sharding import local_spmd
-
     blocker = obs.tempering_blocker()
     assert blocker is None, blocker
     betas = jnp.asarray(betas, jnp.float32)
@@ -243,11 +236,10 @@ def make_tempered_sweep_sharded(obs, network, N: int, B: int, betas, mesh,
 
     def body(k_pg, k_w, k_net, st, datas, betas_local):
         idx = jax.lax.axis_index("chain")
-        with local_spmd():
-            return gibbs(jax.random.fold_in(k_pg, idx),
-                         jax.random.fold_in(k_w, idx),
-                         jax.random.fold_in(k_net, idx),
-                         st, datas, betas_local)
+        return gibbs(jax.random.fold_in(k_pg, idx),
+                     jax.random.fold_in(k_w, idx),
+                     jax.random.fold_in(k_net, idx),
+                     st, datas, betas_local)
 
     def sweep(key, st: GLMState, datas: tuple):
         k_pg, k_w, k_net, k_swap = jax.random.split(key, 4)

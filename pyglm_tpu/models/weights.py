@@ -2,7 +2,7 @@
 
 The reference forms per-neuron sufficient statistics X' Omega X with NumPy
 loops (pyglm/regressions.py: _lkhd_sufficient_statistics, _resample_A_W).
-Here the stats for *all* neurons are one chunked batched MXU matmul, and the
+Here the stats for *all* neurons are one chunked batched matmul, and the
 per-neuron updates are batched under vmap:
 
 - dense weights: batched P-dim information-form Gaussian draws;
@@ -24,7 +24,6 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.scipy.linalg import solve_triangular
 
 from pyglm_tpu.ops.linalg import (
     chol_small, gaussian_evidence, sample_from_evidence, sample_mvn_info,
@@ -32,25 +31,66 @@ from pyglm_tpu.ops.linalg import (
 )
 from pyglm_tpu.utils.utils import logistic
 
+# Model precision mode -> `precision=` of the sweep's large f32 matmuls
+# (psi = Xf w and the Gram statistics). Each mode names a dot algorithm, so
+# it means the same on every backend; lax.Precision.HIGH would lower to
+# TF32 on a GPU, the same as DEFAULT.
 _PRECISIONS = {
+    # the backend's fastest f32 dot: TF32 (~1e-3 relative) on an H100
     "default": lax.Precision.DEFAULT,
-    "sr": lax.Precision.HIGH,      # XLA fallbacks run f32-grade; the SR
-                                   # trick itself lives in the Pallas kernels
-    "high": lax.Precision.HIGH,
+    # f32-grade: three bf16 products with f32 accumulation (~1e-6 relative)
+    "high": lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
+    # full f32
     "highest": lax.Precision.HIGHEST,
 }
 
-# Gram pass of the fused spike-and-slab kernels (ops/ss_pallas.py) per model
-# precision: one truncated-bf16 pass / one stochastically-rounded bf16 pass
-# (unbiased, ~1e-5 relative noise at flagship T — see the kernel module
-# docstring) / three-pass bf16 f32-emulation.
-_GRAM_MODES = {"default": "bf16", "sr": "sr", "high": "bf16x3"}
+# The small contractions of the collapsed edge scan feed the acceptance
+# odds of every edge; they always run in full f32.
+_F32 = lax.Precision.HIGHEST
+
+
+def dot_precision(precision: str):
+    """The `precision=` argument the sweep's matmuls use for a model
+    precision mode ('default' | 'high' | 'highest')."""
+    if precision == "sr":
+        raise ValueError(
+            "precision='sr' (stochastically rounded bf16 statistics) has "
+            "been removed: it existed only inside a hand-written kernel for "
+            "the library's first accelerator. Use 'high' (f32-grade, the "
+            "default) or 'default' (TF32 on a GPU)")
+    if precision not in _PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of "
+                         f"{sorted(_PRECISIONS)}")
+    return _PRECISIONS[precision]
+
+
+def _einsum_precision(spec: str, x_shape, y_shape, precision: str):
+    """The `precision=` of einsum(spec) at a model precision mode. A dot
+    with a free (non-batch, non-contracted) dimension of 1 is a
+    matrix-vector product; XLA's CPU backend emits such a dot elementwise
+    when it fuses it, and that emitter has no three-pass algorithm, so it
+    runs in full f32, which at its size is as cheap."""
+    prec = dot_precision(precision)
+    ins, out = spec.split("->")
+    xs, ys = ins.split(",")
+    size = dict(zip(xs, x_shape)) | dict(zip(ys, y_shape))
+    if any(size[c] == 1 for c in out if not (c in xs and c in ys)):
+        return _F32
+    return prec
+
+
+def einsum_at(spec: str, x, y, precision: str):
+    """einsum(spec, x, y) with f32 accumulation at a model precision mode
+    ('default' | 'high' | 'highest'): the sweep's large matmuls."""
+    return jnp.einsum(
+        spec, x, y, preferred_element_type=jnp.float32,
+        precision=_einsum_precision(spec, x.shape, y.shape, precision))
+
 
 # Which spike-and-slab implementation the most recent _tspace_impl TRACE
-# selected ("staged" | "fused" | "mesh_fused"). Set at trace time, so it
-# reflects the path baked into the compiled sweep — tests use it to assert
-# the fused kernel actually engaged (a silent fallback would otherwise make
-# a kernel-targeted statistical test vacuous).
+# selected ("staged" | "mesh_fused"). Set at trace time, so it reflects the
+# path baked into the compiled sweep — tests use it to assert the mesh path
+# actually engaged (a silent fallback would otherwise go unnoticed).
 LAST_SS_PATH = None
 
 
@@ -86,13 +126,12 @@ def sufficient_stats(Xf, omega, kappa, t_chunk: int = 512,
     """J[n] = Xf' diag(omega[:, n]) Xf and h[:, n] = Xf' kappa[:, n].
 
     The dominant FLOPs of a sweep: O(N * T * P^2), executed as a lax.scan
-    over time chunks of batched (P x tc)(tc x P) MXU matmuls with f32
+    over time chunks of batched (P x tc)(tc x P) matmuls with f32
     accumulation (each chunk sums <= t_chunk terms, so f32 is safe at
     T = 100k; SURVEY.md §7 hard-part #2).
 
     Returns J (N, P, P), h (P, N).
     """
-    prec = _PRECISIONS[precision]
     T, P = Xf.shape
     N = omega.shape[1]
     n_chunks = -(-T // t_chunk)
@@ -105,15 +144,13 @@ def sufficient_stats(Xf, omega, kappa, t_chunk: int = 512,
     def body(J, xs):
         xc, oc = xs
         xw = xc[:, None, :] * oc[:, :, None]            # (tc, N, P)
-        Jc = jnp.einsum("tnp,tq->npq", xw, xc,
-                        preferred_element_type=jnp.float32, precision=prec)
+        Jc = einsum_at("tnp,tq->npq", xw, xc, precision)
         return J + Jc, None
 
     J0 = jnp.zeros((N, P, P), jnp.float32)
     J, _ = lax.scan(body, J0, (Xc, Oc))
     Kp = jnp.pad(kappa, ((0, pad), (0, 0)))
-    h = jnp.einsum("tp,tn->pn", Xp, Kp,
-                   preferred_element_type=jnp.float32, precision=prec)
+    h = einsum_at("tp,tn->pn", Xp, Kp, precision)
     return J, h
 
 
@@ -145,7 +182,7 @@ def _spike_slab_one_neuron(key, J, h, w_init, mu0, Lam0, logit_rho,
     P = h.shape[0]
     C0 = chol_small(Lam0)                                # (N, B, B)
     ld0_half = jnp.sum(jnp.log(jnp.diagonal(C0, axis1=-2, axis2=-1)), axis=-1)
-    r_vec = J @ w_init
+    r_vec = jnp.matmul(J, w_init, precision=_F32)
     keys = jax.random.split(key, N + 1)
 
     def body(carry, xs):
@@ -158,12 +195,12 @@ def _spike_slab_one_neuron(key, J, h, w_init, mu0, Lam0, logit_rho,
         hj = lax.dynamic_slice(h, (sl,), (B,))
         rj = lax.dynamic_slice(r_vec, (sl,), (B,))
         wj = lax.dynamic_slice(w, (sl,), (B,))
-        mj = hj - (rj - Jjj @ wj)
+        mj = hj - (rj - jnp.matmul(Jjj, wj, precision=_F32))
         ev = gaussian_evidence(mj, Jjj, mu0j, Lam0j, chol0_logdet=ld0j)
         log_odds = lrho + ev.log_evidence
         a = jax.random.bernoulli(k1, logistic(log_odds))
         wnew = jnp.where(a, sample_from_evidence(k2, ev), jnp.zeros((B,)))
-        r_vec = r_vec + Jcol @ (wnew - wj)
+        r_vec = r_vec + jnp.matmul(Jcol, wnew - wj, precision=_F32)
         w = lax.dynamic_update_slice(w, wnew, (sl,))
         return (w, r_vec), a.astype(jnp.float32)
 
@@ -198,12 +235,11 @@ def diag_blocks(Xf, omega, B: int, t_chunk: int = 512,
                 precision: str = "highest"):
     """Jd[j, n] = X_j' diag(omega[:, n]) X_j for every (presyn j, postsyn n).
 
-    One chunked MXU matmul: Z[t, (j,b,c)] = X[t,jb] X[t,jc], Jd = Z' omega.
+    One chunked matmul: Z[t, (j,b,c)] = X[t,jb] X[t,jc], Jd = Z' omega.
     O(N^2 T B^2) FLOPs — a factor (N B^2 / B^2) = N cheaper than the full
     Gram stack, and the only quadratic-in-basis statistic the collapsed
     spike-and-slab scan needs. Returns Jd (N_pre, N_post, B, B).
     """
-    prec = _PRECISIONS[precision]
     T, P = Xf.shape
     N_pre = (P - 1) // B
     N = omega.shape[1]
@@ -218,9 +254,7 @@ def diag_blocks(Xf, omega, B: int, t_chunk: int = 512,
         xc, oc = xs                                   # (tc,Npre,B), (tc,N)
         Z = (xc[:, :, :, None] * xc[:, :, None, :]).reshape(
             t_chunk, N_pre * B * B)
-        acc = acc + jnp.einsum("tz,tn->zn", Z, oc,
-                               preferred_element_type=jnp.float32,
-                               precision=prec)
+        acc = acc + einsum_at("tz,tn->zn", Z, oc, precision)
         return acc, None
 
     acc0 = jnp.zeros((N_pre * B * B, N), jnp.float32)
@@ -253,8 +287,8 @@ def _group_edge_scan(kg, Jgg, M0, wg, mu0g, Lam0g, ld0g, lrhog,
         Jii = lax.dynamic_slice(Jgg, (0, li, li), (N, B, B))
         wi = lax.dynamic_slice(w_cur, (li, 0), (B, N))     # (B, N)
         M0i = lax.dynamic_slice(M0, (li, 0), (B, N))
-        m = (M0i.T - jnp.einsum("nbq,qn->nb", Jrow, dW)
-             + jnp.einsum("nbc,cn->nb", Jii, wi))
+        m = (M0i.T - jnp.einsum("nbq,qn->nb", Jrow, dW, precision=_F32)
+             + jnp.einsum("nbc,cn->nb", Jii, wi, precision=_F32))
         log_ev, mu_p, Cp = _batched_evidence(m, Jii, mu0i, Lam0i, ld0i)
         a = jax.random.bernoulli(k1, logistic(lrhoi + log_ev))
         eps = jax.random.normal(k2, (N, B))
@@ -281,10 +315,11 @@ def _batched_evidence(m, Jjj, mu0, Lam0, ld0_half):
     dominate the N_pre-step sequential scan."""
     Lp = Lam0 + Jjj
     Cp = chol_small(Lp)
-    bpost = m + jnp.einsum("nbc,nc->nb", Lam0, mu0)
+    bpost = m + jnp.einsum("nbc,nc->nb", Lam0, mu0, precision=_F32)
     z = solve_lower_small(Cp, bpost)
     quad_p = 0.5 * jnp.sum(z * z, axis=-1)
-    quad_0 = 0.5 * jnp.einsum("nb,nbc,nc->n", mu0, Lam0, mu0)
+    quad_0 = 0.5 * jnp.einsum("nb,nbc,nc->n", mu0, Lam0, mu0,
+                              precision=_F32)
     logdet_p = jnp.sum(jnp.log(jnp.diagonal(Cp, axis1=-2, axis2=-1)), axis=-1)
     log_ev = quad_p - quad_0 + ld0_half - logdet_p
     mu_p = solve_lower_t_small(Cp, z)
@@ -296,11 +331,10 @@ def group_gram_blocks(Xf, omega, B: int, G: int, t_chunk: int = 512,
                       precision: str = "highest"):
     """Within-group Gram blocks: for edge groups of G presyn neurons,
     Jg[g, n] = Xg' diag(omega[:, n]) Xg with Xg the group's (T, G*B)
-    design columns. One chunked MXU matmul; O(N^2 T B^2 G / ... ) — G x the
+    design columns. One chunked matmul; O(N^2 T B^2 G / ... ) — G x the
     diagonal-blocks cost, still ~N/G cheaper than the full Gram stack.
     Returns (n_groups, N_post, G*B, G*B).
     """
-    prec = _PRECISIONS[precision]
     T, P = Xf.shape
     N_pre = (P - 1) // B
     assert N_pre % G == 0
@@ -318,9 +352,7 @@ def group_gram_blocks(Xf, omega, B: int, G: int, t_chunk: int = 512,
         xc, oc = xs                                   # (tc,Ng,GB), (tc,N)
         Z = (xc[:, :, :, None] * xc[:, :, None, :]).reshape(
             t_chunk, Ng * GB * GB)
-        acc = acc + jnp.einsum("tz,tn->zn", Z, oc,
-                               preferred_element_type=jnp.float32,
-                               precision=prec)
+        acc = acc + einsum_at("tz,tn->zn", Z, oc, precision)
         return acc, None
 
     acc0 = jnp.zeros((Ng * GB * GB, N), jnp.float32)
@@ -328,31 +360,18 @@ def group_gram_blocks(Xf, omega, B: int, G: int, t_chunk: int = 512,
     return acc.reshape(Ng, GB, GB, N).transpose(0, 3, 1, 2)
 
 
-def _use_pallas_gram() -> bool:
-    import os
-    if os.environ.get("PYGLM_PG_BACKEND") == "xla":
-        return False
-    return jax.devices()[0].platform == "tpu"
-
-
-def _gram_shard_map(Xf, omega, B, G, t_chunk, precision, mesh, use_pallas):
+def _gram_shard_map(Xf, omega, B, G, t_chunk, precision, mesh):
     """Group Gram blocks under a mesh via jax.shard_map: each device forms
-    its local time-slice Gram (Pallas kernel on TPU shards, the XLA scan
-    elsewhere) and the time axis psums — the stats are associative sums
-    over t (SURVEY.md §2.4 seq-parallel row). The lane (postsyn) axis
-    shards over 'neuron', or jointly over ('chain','neuron') on a composed
-    chain-data mesh (parallel.sharding.lane_axes)."""
+    its local time-slice Gram and the time axis psums — the stats are
+    associative sums over t (SURVEY.md §2.4 seq-parallel row). The lane
+    (postsyn) axis shards over 'neuron', or jointly over ('chain','neuron')
+    on a composed chain-data mesh (parallel.sharding.lane_axes)."""
     from jax.sharding import PartitionSpec as P
     from pyglm_tpu.parallel.sharding import lane_axes
 
     def fn(xf, om):
-        if use_pallas:
-            from pyglm_tpu.ops.gram_pallas import group_gram_blocks_pallas
-            Jl = group_gram_blocks_pallas(xf, om, B, G, t_chunk=t_chunk,
-                                          fast=(precision == "default"))
-        else:
-            Jl = group_gram_blocks(xf, om, B, G, t_chunk=t_chunk,
-                                   precision=precision)
+        Jl = group_gram_blocks(xf, om, B, G, t_chunk=t_chunk,
+                               precision=precision)
         return lax.psum(Jl, "time")
 
     lanes = lane_axes(mesh)
@@ -364,27 +383,25 @@ def _gram_shard_map(Xf, omega, B, G, t_chunk, precision, mesh, use_pallas):
 
 def _ss_fused_shard_map(key, Xt, omega, kappa, psi, w_full, hyp: EdgeHypers,
                         B: int, G: int, mesh, t_chunk: int, precision: str):
-    """Mesh-sharded fused spike-and-slab update (VERDICT r2 item #1).
+    """Mesh-sharded fused spike-and-slab update.
 
     Runs the whole collapsed update inside ONE jax.shard_map over the
     ('time','neuron') mesh. Per group of G presyn neurons, each device runs
-    a fused scatter+gather+Gram pass over its local time slice — the Pallas
-    group kernel (ops/ss_pallas.py ss_group_pass_pallas) on TPU, the
-    equivalent XLA matmuls elsewhere — then Jgg/M0 psum over the time axis
-    and the collapsed edge scan (_group_edge_scan, the same Geweke-tested
-    conditionals as the staged path) runs replicated across time shards on
-    each device's local postsyn lanes. RNG: the key is folded with the
-    lane-shard index, so postsyn draws are independent across lane
-    shards and bit-identical across time shards (their scatters agree).
+    a scatter+gather+Gram pass over its local time slice, then Jgg/M0 psum
+    over the time axis and the collapsed edge scan (_group_edge_scan, the
+    same Geweke-tested conditionals as the staged path) runs replicated
+    across time shards on each device's local postsyn lanes. RNG: the key
+    is folded with the lane-shard index, so postsyn draws are independent
+    across lane shards and bit-identical across time shards (their
+    scatters agree).
 
     The postsyn-lane axis shards over 'neuron', or jointly over
     ('chain','neuron') on a composed chain-data mesh — the whole update is
     lane-parallel, so a chain-stacked lane axis (models/ensemble.py) rides
-    the identical kernel; only the lane count and partition axes change
+    the identical pass; only the lane count and partition axes change
     (parallel.sharding.lane_axes).
     """
     from jax.sharding import PartitionSpec as PS
-    from pyglm_tpu.ops.ss_pallas import ss_group_pass_pallas, ss_group_pass_tc
     from pyglm_tpu.parallel.sharding import lane_axes, lane_count, lane_index
 
     T, N = omega.shape
@@ -397,37 +414,18 @@ def _ss_fused_shard_map(key, Xt, omega, kappa, psi, w_full, hyp: EdgeHypers,
     n_neuron = lane_count(mesh)
     Tl = T // n_time
     Nl = N // n_neuron
-    use_pallas = (_use_pallas_gram() and GB % 8 == 0 and B <= 8
-                  and precision in ("default", "sr", "high") and Tl >= 128)
-    gram = _GRAM_MODES.get(precision, "bf16x3")
-    prec = _PRECISIONS[precision]
 
-    def group_pass(kg, Xp, Xg, u_c, om_loc, dW):
-        """(u_new, M0 (GB,Nl), Jgg (Nl,GB,GB)) for one group; u_c is padded
-        (Tpad, npad) on the Pallas branch, raw (Tl, Nl) on the XLA branch."""
-        if use_pallas:
-            npad = u_c.shape[1]
-            dW_p = jnp.pad(dW, ((0, 0), (0, npad - Nl)))
-            # SR rounding bits: an independent stream per group (kg is the
-            # group's key); time shards share kg but round different data.
-            seed = jax.random.key_data(
-                jax.random.fold_in(kg, 0x5417)).astype(jnp.int32)[:2]
-            u_new, M0p, Jggp = ss_group_pass_pallas(
-                Xp, Xg, om_loc, u_c, dW_p, Tl,
-                t_chunk=t_chunk, gram=gram, seed=seed)
-            M0 = M0p[:, :Nl]
-            Jgg = Jggp[:, :Nl].reshape(GB, GB, Nl).transpose(2, 0, 1)
-            return u_new, M0, Jgg
-        u_new = u_c - om_loc * lax.dot_general(
+    def group_pass(Xp, Xg, u, om, dW):
+        """(u_new, M0 (GB,Nl), Jgg (Nl,GB,GB)) for one group: scatter the
+        previous group's weight change into the residual, then gather."""
+        u_new = u - om * lax.dot_general(
             Xp, dW, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=lax.Precision.HIGHEST)
+            preferred_element_type=jnp.float32, precision=_F32)
         M0 = lax.dot_general(Xg, u_new, (((1,), (0,)), ((), ())),
                              preferred_element_type=jnp.float32,
-                             precision=lax.Precision.HIGHEST)
+                             precision=_F32)
         Z = (Xg[:, None, :] * Xg[None, :, :]).reshape(GB * GB, Tl)
-        Jgg = jnp.dot(Z, om_loc, preferred_element_type=jnp.float32,
-                      precision=prec)
+        Jgg = einsum_at("zt,tn->zn", Z, om, precision)
         return u_new, M0, Jgg.reshape(GB, GB, Nl).transpose(2, 0, 1)
 
     def shard_fn(k, xt, om, ka, ps, w, mu, lam, lrho, mu_b, lam_b):
@@ -445,47 +443,26 @@ def _ss_fused_shard_map(key, Xt, omega, kappa, psi, w_full, hyp: EdgeHypers,
         ld0_g, lrho_g = regroup(ld0_half), regroup(lrho)
         w_nb = w[: N_pre * B]
 
-        if use_pallas:
-            tc = ss_group_pass_tc(Tl, t_chunk)
-            pad_t = -(-Tl // tc) * tc - Tl
-            npad = -(-Nl // 128) * 128
-            # bf16 omega stream for the speed modes (ss_pallas module
-            # docstring): RTN of a fresh draw is zero-mean. u is rebuilt
-            # from the SAME rounded om so the residual recursion is
-            # self-consistent; u itself stays f32 (a bf16 u stream was
-            # measured net-negative — BASELINE.md r3).
-            om_st = (om.astype(jnp.bfloat16) if gram in ("bf16", "sr")
-                     else om)
-            u_st = ka - om_st.astype(jnp.float32) * ps
-            om_loc = jnp.pad(om_st, ((0, pad_t), (0, npad - Nl)))
-            u_c = jnp.pad(u_st, ((0, pad_t), (0, npad - Nl)))
-        else:
-            om_loc = om
-            u_c = u
-
         def body(carry, xs):
-            u_c, w_nb_c, dW_prev = carry
+            u, w_nb_c, dW_prev = carry
             g, kg, mu0g, Lam0g, ld0g, lrhog = xs
             gp = jnp.maximum(g - 1, 0)                 # dW_prev == 0 at g=0
             Xp = lax.dynamic_slice(xt, (gp * GB, 0), (GB, Tl))
             Xg = lax.dynamic_slice(xt, (g * GB, 0), (GB, Tl))
-            u_c, M0_loc, Jgg_loc = group_pass(kg, Xp, Xg, u_c, om_loc,
-                                              dW_prev)
+            u, M0_loc, Jgg_loc = group_pass(Xp, Xg, u, om, dW_prev)
             M0 = lax.psum(M0_loc, "time")
             Jgg = lax.psum(Jgg_loc, "time")
             wg = lax.dynamic_slice(w_nb_c, (g * GB, 0), (GB, Nl))
             dW, wg_new, a_g = _group_edge_scan(
                 kg, Jgg, M0, wg, mu0g, Lam0g, ld0g, lrhog, G, B)
             w_nb_c = lax.dynamic_update_slice(w_nb_c, wg_new, (g * GB, 0))
-            return (u_c, w_nb_c, dW), a_g
+            return (u, w_nb_c, dW), a_g
 
         xs = (jnp.arange(Ng), keys[:Ng], mu_g, Lam_g, ld0_g, lrho_g)
-        (u_c, w_nb, dW_last), A_g = lax.scan(
-            body, (u_c, w_nb, jnp.zeros((GB, Nl), jnp.float32)), xs)
+        (u, w_nb, dW_last), A_g = lax.scan(
+            body, (u, w_nb, jnp.zeros((GB, Nl), jnp.float32)), xs)
 
         # Epilogue: the last group's draws have not been scattered yet.
-        # (upcast: u_c streams bf16 under gram='sr')
-        u = (u_c[:Tl, :Nl].astype(jnp.float32) if use_pallas else u_c)
         Xl = lax.dynamic_slice(xt, ((Ng - 1) * GB, 0), (GB, Tl))
         u = u - om * lax.dot_general(
             Xl, dW_last, (((0,), (0,)), ((), ())),
@@ -521,64 +498,9 @@ def _ss_fused_shard_map(key, Xt, omega, kappa, psi, w_full, hyp: EdgeHypers,
 
 def _auto_group(N_pre: int, B: int = 4) -> int:
     """Divisor of N_pre balancing group-Gram FLOPs (~G) against residual
-    HBM traffic (~1/G); on TPU prefer G*B % 8 == 0 so the fused Pallas Gram
-    kernel (ops/gram_pallas.py) is usable — it beats the XLA path despite
-    the larger G."""
+    memory traffic (~1/G): the divisor nearest 5, larger on ties."""
     divs = [g for g in range(1, min(16, N_pre) + 1) if N_pre % g == 0]
-    if _use_pallas_gram():
-        aligned = [g for g in divs if (g * B) % 8 == 0]
-        if aligned:
-            return min(aligned, key=lambda g: (abs(g - 8), -g))
     return min(divs, key=lambda g: (abs(g - 5), -g))
-
-
-# Scoped-vmem budget for the monolithic fused kernel (ops/ss_pallas.py).
-# Mosaic's per-kernel stack limit is 16 MB; the estimator below slightly
-# OVERSTATES the compiler's accounting (measured 19.5 MB estimated vs
-# 16.91 MB compiled at G=10, B=4, npad=2048, tc=128 — the one shape that
-# OOM'd in round 5), so a 15.5 MB cap on the estimate keeps ~3 MB of real
-# headroom.
-_FUSED_VMEM_CAP = int(15.5 * 2 ** 20)
-
-
-def _fused_vmem_bytes(G: int, B: int, npad: int, tc: int) -> int:
-    """Estimate the fused kernel's scoped-vmem stack: double-buffered
-    input/output blocks (the tc-wide design/omega/residual streams and the
-    npad-wide hyper/weight slabs) plus the single-buffered scratch, whose
-    dominant term is the per-group Gram triangle G(G+1)/2 * B^2 rows of
-    npad lanes. All f32 (bf16 streams only shrink this, so the estimate
-    stays conservative)."""
-    GB = G * B
-    G8 = -(-G // 8) * 8
-    streams = 2 * 4 * (2 * GB * tc + 3 * tc * npad)     # Xt x2, om, u in/out
-    slabs = 2 * 4 * npad * (3 * GB + G * B * B + 2 * G8 + 8)
-    scratch = 4 * npad * (G * (G + 1) // 2 * B * B + 2 * GB)
-    return streams + slabs + scratch
-
-
-def _fused_plan(N_pre: int, B: int, npad: int, t_chunk: int,
-                group: int | None = None):
-    """Choose (G, tc) for the monolithic fused spike-and-slab kernel so its
-    scoped-vmem stack fits, or None when no choice does (wide lane counts:
-    the tc=128 minimum stream alone exceeds the cap around npad ~ 4096).
-    Groups are tried in _auto_group's preference order (nearest 8, Pallas-
-    aligned); within a group the largest time chunk <= max(t_chunk, 1024)
-    wins — 1024-row chunks measured ~1.5-2 ms/sweep faster than 512 at
-    flagship scale. A caller-pinned ``group`` is respected (only its tc is
-    searched)."""
-    if group is not None:
-        gs = [group]
-    else:
-        gs = sorted((g for g in range(1, min(16, N_pre) + 1)
-                     if N_pre % g == 0 and (g * B) % 8 == 0),
-                    key=lambda g: (abs(g - 8), -g))
-    for g in gs:
-        tc = max(t_chunk, 1024)
-        while tc >= 128:
-            if _fused_vmem_bytes(g, B, npad, tc) <= _FUSED_VMEM_CAP:
-                return g, tc
-            tc //= 2
-    return None
 
 
 def resample_spike_slab_tspace(key, Xf, omega, kappa, w_full,
@@ -590,20 +512,19 @@ def resample_spike_slab_tspace(key, Xf, omega, kappa, w_full,
     STATIC jit argument so the mesh-sharded and single-device traces can
     never be served from each other's jit cache (they pick different code
     paths at trace time). See _tspace_impl for the math."""
-    from pyglm_tpu.parallel.sharding import active_mesh, in_local_spmd
+    from pyglm_tpu.parallel.sharding import active_mesh
     return _tspace_impl(key, Xf, omega, kappa, w_full, hyp, B=B,
                         t_chunk=t_chunk, precision=precision, group=group,
-                        psi=psi, Jg=Jg, Xt=Xt, mesh=active_mesh(),
-                        local_spmd=in_local_spmd())
+                        psi=psi, Jg=Jg, Xt=Xt, mesh=active_mesh())
 
 
 @partial(jax.jit, static_argnames=("B", "t_chunk", "precision", "group",
-                                   "mesh", "local_spmd"))
+                                   "mesh"))
 def _tspace_impl(key, Xf, omega, kappa, w_full,
                  hyp: EdgeHypers, B: int, t_chunk: int = 512,
                  precision: str = "highest",
                  group: int | None = None, psi=None, Jg=None,
-                 Xt=None, mesh=None, local_spmd: bool = False):
+                 Xt=None, mesh=None):
     """Collapsed spike-and-slab for all neurons in residual (T-) space.
 
     Instead of materializing the full (N, P, P) Gram stack (O(N^3 T B^2)
@@ -617,13 +538,12 @@ def _tspace_impl(key, Xf, omega, kappa, w_full,
         m_i = (Xg'u)_i - Jg[i, :] dW + Jg[i, i] w_i^cur
 
     O(N^2 T B) total, identical conditionals to the reference's per-edge
-    collapsed Gibbs (pyglm/regressions.py _resample_A_W), ~G x less HBM
+    collapsed Gibbs (pyglm/regressions.py _resample_A_W), ~G x less memory
     traffic than edge-at-a-time. Scan order: edge groups, then bias.
 
     Returns (A, w_full, u, sum_omega); psi under the new weights is
     (kappa - u) / omega — no extra big matmul.
     """
-    prec = _PRECISIONS[precision]
     T, P = Xf.shape
     N = omega.shape[1]
     N_pre = (P - 1) // B
@@ -632,20 +552,14 @@ def _tspace_impl(key, Xf, omega, kappa, w_full,
     GB = G * B
 
     # Trace-time record of which implementation this call compiled into
-    # ("staged" | "fused" | "mesh_fused") — a test/debug hook so suites can
-    # assert the intended kernel actually engaged rather than silently
-    # falling back (VERDICT r3 weak #4).
+    # ("staged" | "mesh_fused") — a test/debug hook so suites can assert
+    # the mesh path actually engaged rather than silently falling back.
     global LAST_SS_PATH
     LAST_SS_PATH = "staged"
 
-    import os
-
-    # Mesh path: the whole collapsed update inside one shard_map — fused
-    # per-group passes per device (Pallas on TPU shards), time-axis psums
-    # of Jgg/M0, replicated edge scan. No fallback-to-staged under a mesh
-    # (VERDICT r2 item #1).
-    if (mesh is not None and Jg is None
-            and os.environ.get("PYGLM_SS_BACKEND") != "xla"):
+    # Mesh path: the whole collapsed update inside one shard_map — per-group
+    # passes per device, time-axis psums of Jgg/M0, replicated edge scan.
+    if mesh is not None and Jg is None:
         from pyglm_tpu.parallel.sharding import lane_count
         reasons = []
         if Xt is None:
@@ -664,9 +578,9 @@ def _tspace_impl(key, Xf, omega, kappa, w_full,
             LAST_SS_PATH = "mesh_fused"
             return _ss_fused_shard_map(key, Xt, omega, kappa, psi, w_full,
                                        hyp, B, G, mesh, t_chunk, precision)
-        # Loud downgrade (VERDICT r3 weak #3): the staged path below is
-        # exact but loses the fused per-shard passes. Trace-time warning —
-        # fires once per compiled sweep shape, not per sweep.
+        # Loud downgrade: the staged path below is exact but loses the
+        # per-shard passes. Trace-time warning — fires once per compiled
+        # sweep shape, not per sweep.
         import warnings
         from pyglm_tpu.utils.utils import PerformanceWarning
         warnings.warn(
@@ -674,57 +588,7 @@ def _tspace_impl(key, Xf, omega, kappa, w_full,
             "and running the staged path: " + "; ".join(reasons),
             PerformanceWarning, stacklevel=2)
 
-    # Fully-fused kernel path (ops/ss_pallas.py): Gram + residual update +
-    # in-kernel edge scan in ONE pallas pass — u/omega/design each streamed
-    # once per group (single-chip; the monolithic kernel needs the full
-    # time axis resident to interleave its in-kernel edge scan).
-    # (G, tc) are co-selected by _fused_plan under a modeled scoped-vmem
-    # budget (_fused_vmem_bytes): the kernel's streams scale with tc*npad
-    # and its Gram-triangle scratch with G^2*B^2*npad, so wide lane counts
-    # (stacked ensembles: npad = C*N padded) take a smaller group and a
-    # 128-row chunk rather than OOM-ing the 16 MB Mosaic stack. When even
-    # G at tc=128 cannot fit (npad ~ 4096+), plan is None and the staged
-    # path below runs instead.
-    npad = -(-N // 128) * 128
-    plan = _fused_plan(N_pre, B, npad, t_chunk, group=group)
-
-    if (Xt is not None and Jg is None and psi is not None
-            and precision in ("default", "sr", "high")
-            and plan is not None and (plan[0] * B) % 8 == 0
-            and B <= 8 and T >= 384
-            and _use_pallas_gram()
-            and (len(jax.devices()) == 1 or local_spmd)
-            and mesh is None
-            and os.environ.get("PYGLM_SS_BACKEND") != "xla"):
-        from pyglm_tpu.ops.ss_pallas import resample_spike_slab_fused
-        G_f, tc_eff = plan
-        LAST_SS_PATH = "fused"
-        k_kern, k_bias = jax.random.split(key)
-        A, w_nb, u, sum_om = resample_spike_slab_fused(
-            k_kern, Xt, omega, kappa, psi, w_full[: N_pre * B],
-            hyp.mu, hyp.Lam, hyp.logit_rho, B, G_f,
-            t_chunk=tc_eff, gram=_GRAM_MODES[precision])
-        b_old = w_full[P - 1]
-        # u comes back bf16 under gram='sr' (stream format): accumulate the
-        # column sums in f32 and let the bias scatter below promote.
-        m_b = (jnp.sum(u, axis=0, dtype=jnp.float32)
-               + sum_om * b_old + hyp.lam_b * hyp.mu_b)
-        lam_p = hyp.lam_b + sum_om
-        b_new = (m_b / lam_p
-                 + jax.random.normal(k_bias, (N,)) / jnp.sqrt(lam_p))
-        u = u.astype(jnp.float32) - omega * (b_new - b_old)[None, :]
-        w = jnp.concatenate([w_nb, b_new[None, :]], axis=0)
-        return A, w, u, sum_om
-
     if Jg is None:
-        # Fused Gram kernel: fast=True (single bf16 pass, ~8e-4 rel) for
-        # the opt-in speed mode; fast=False (in-kernel bf16x3, ~7e-7 rel —
-        # measured slightly MORE accurate than the XLA HIGH path) for
-        # precision='high'. 'highest' keeps the f32 XLA scan.
-        # ('sr' runs bf16x3 on this staged path — the SR trick lives in the
-        # fused ss_pallas kernels, which 'sr' models normally take.)
-        pallas_ok = (_use_pallas_gram() and GB % 8 == 0
-                     and precision in ("default", "sr", "high"))
         if mesh is not None and mesh.devices.size > 1:
             from pyglm_tpu.parallel.sharding import lane_count
             mesh_ok = (T % mesh.shape.get("time", 1) == 0
@@ -732,31 +596,18 @@ def _tspace_impl(key, Xf, omega, kappa, w_full,
         else:
             mesh_ok = False
         if mesh_ok:
-            Jg = _gram_shard_map(Xf, omega, B, G, t_chunk, precision,
-                                 mesh, pallas_ok)
-        elif pallas_ok and (len(jax.devices()) == 1 or local_spmd):
-            from pyglm_tpu.ops.gram_pallas import (
-                group_gram_blocks_pallas, group_gram_blocks_pallas_t)
-            if Xt is not None:
-                Jg = group_gram_blocks_pallas_t(
-                    Xt, omega, B, G, t_chunk=None,
-                    fast=(precision == "default"), n_pre=N_pre)
-            else:
-                Jg = group_gram_blocks_pallas(
-                    Xf, omega, B, G, t_chunk=t_chunk,
-                    fast=(precision == "default"))
+            Jg = _gram_shard_map(Xf, omega, B, G, t_chunk, precision, mesh)
         else:
             Jg = group_gram_blocks(Xf, omega, B, G, t_chunk=t_chunk,
                                    precision=precision)  # (Ng, N, GB, GB)
-    # Unrolled small-B cholesky: the batched LAPACK-style kernel costs
-    # ~17 ms on the (Npre, N, B, B) prior stack — per sweep, since hyp
+    # Unrolled small-B cholesky: a batched library Cholesky of the
+    # (Npre, N, B, B) prior stack is launch-bound — per sweep, since hyp
     # changes with the network state.
     C0 = chol_small(hyp.Lam)                          # (Npre, N, B, B)
     ld0_half = jnp.sum(jnp.log(jnp.diagonal(C0, axis1=-2, axis2=-1)), axis=-1)
 
     if psi is None:
-        psi = jnp.dot(Xf, w_full, preferred_element_type=jnp.float32,
-                      precision=prec)
+        psi = einsum_at("tp,pn->tn", Xf, w_full, precision)
     u0 = kappa - omega * psi
     keys = jax.random.split(key, Ng + 1)
 
@@ -827,7 +678,7 @@ def _dense_one_neuron(key, J, h, mu0, Lam0, mu_b, lam_b, B: int):
     """Full P-dim conjugate Gaussian draw (dense adjacency, A == 1)."""
     P = h.shape[0]
     prior_prec = _block_diag_precision(Lam0, lam_b, P, B)
-    h0 = jnp.einsum("jbc,jc->jb", Lam0, mu0).reshape(-1)
+    h0 = jnp.einsum("jbc,jc->jb", Lam0, mu0, precision=_F32).reshape(-1)
     h0 = jnp.concatenate([h0, (lam_b * mu_b)[None]])
     return sample_mvn_info(key, h + h0, prior_prec + J)
 

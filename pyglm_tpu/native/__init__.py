@@ -23,18 +23,22 @@ _tried = False
 
 
 def _build() -> bool:
-    cmd = ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", _SRC, "-o", _LIB]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
-    except Exception:
-        try:  # retry without OpenMP
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", _LIB],
-                check=True, capture_output=True, timeout=120)
-            return True
+    # Several processes (test workers) may build at once: each compiles to
+    # its own file and renames it into place, so no process ever loads a
+    # library another one is still writing.
+    tmp = os.path.join(_HERE, f"libpg.{os.getpid()}.tmp.so")
+    for flags in (["-fopenmp"], []):          # retry without OpenMP
+        try:
+            subprocess.run(["g++", "-O3", *flags, "-shared", "-fPIC", _SRC,
+                            "-o", tmp],
+                           check=True, capture_output=True, timeout=120)
         except Exception:
-            return False
+            continue
+        os.replace(tmp, _LIB)
+        return True
+    if os.path.exists(tmp):
+        os.remove(tmp)
+    return False
 
 
 def _load():

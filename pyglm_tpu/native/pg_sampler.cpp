@@ -1,11 +1,11 @@
 // Exact Polya-Gamma PG(1, c) sampler — native C++/OpenMP implementation.
 //
 // Role in pyglm_tpu: the reference's native layer is a C++ PG sampler
-// (pypolyagamma/cpp/PolyaGamma.cpp, OpenMP fan-out in pgdrawvpar). The TPU
-// compute path replaces it with Pallas/XLA kernels (ops/pg_pallas.py,
-// ops/polyagamma.py); THIS file is the host-side native equivalent, written
+// (pypolyagamma/cpp/PolyaGamma.cpp, OpenMP fan-out in pgdrawvpar). The
+// accelerator path replaces it with vectorized JAX samplers
+// (ops/polyagamma.py); THIS file is the host-side native equivalent, written
 // from the Polson–Scott–Windle (2013) / Devroye algorithm:
-//   * an independent oracle for statistical cross-checks of the TPU
+//   * an independent oracle for statistical cross-checks of the JAX
 //     samplers (different code, different RNG, same distribution), and
 //   * a fast multi-threaded CPU path for the compat layer.
 //

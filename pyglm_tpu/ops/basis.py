@@ -1,9 +1,9 @@
 """Raised-cosine temporal basis and causal spike-history convolution.
 
 Capability parity with ``pyglm/utils/basis.py`` (``cosine_basis``,
-``convolve_with_basis``), rebuilt TPU-first: the design tensor is formed by a
-single XLA convolution (``lax.conv_general_dilated``) over the whole spike
-matrix instead of per-column scipy ``fftconvolve`` calls.
+``convolve_with_basis``), rebuilt for an accelerator: the design tensor is
+formed by a single XLA convolution (``lax.conv_general_dilated``) over the
+whole spike matrix instead of per-column scipy ``fftconvolve`` calls.
 
 Conventions (matching the reference's causal one-bin shift):
     X[t, n, b] = sum_{d=1..L} Y[t-d, n] * basis[d-1, b]
@@ -86,7 +86,7 @@ def convolve_with_basis(Y: jax.Array, basis) -> jax.Array:
         lhs, rhs, window_strides=(1,), padding=[(L, 0)],
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=jnp.float32,
-        # Full f32 (no bf16 input truncation on the MXU): the design tensor is
+        # Full f32 (no TF32 / bf16 input truncation): the design tensor is
         # "the data" — it must match the host-side oracle to f32 accuracy.
         precision=lax.Precision.HIGHEST,
     )  # (N, B, T+1)

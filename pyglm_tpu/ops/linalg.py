@@ -1,11 +1,15 @@
 """Conjugate-update linear algebra and distribution samplers.
 
-TPU-native analog of the reference's Bayesian primitives layer
+Batched analog of the reference's Bayesian primitives layer
 (``pybasicbayes/util/stats.py``: ``sample_gaussian`` (info form),
 ``sample_invwishart``, ``sample_niw``) — pure functions on ``jax.random``
 keys, written to batch cleanly under ``vmap`` (the rebuild replaces the
 reference's per-neuron / per-block Python loops with batched Cholesky
 factorizations).
+
+The small matrix products here are pinned to full f32 (`_F32`): left at
+the backend default, a GPU runs f32 matmuls in TF32, which would leak
+~1e-3 relative error into every conjugate posterior.
 """
 from __future__ import annotations
 
@@ -15,6 +19,12 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.scipy.linalg import solve_triangular
+
+_F32 = lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_F32)
 
 
 def sample_mvn_info(key, h, Lambda):
@@ -50,11 +60,11 @@ def gaussian_evidence(m, J, mu0, Lambda0, chol0_logdet=None):
     """
     Lp = Lambda0 + J
     Cp = jnp.linalg.cholesky(Lp)
-    bpost = m + Lambda0 @ mu0
+    bpost = m + _mm(Lambda0, mu0)
     z = solve_triangular(Cp, bpost, lower=True)
     mu_p = solve_triangular(Cp.T, z, lower=False)
-    quad_p = 0.5 * jnp.dot(z, z)                       # = 1/2 mu_p' Lp mu_p
-    quad_0 = 0.5 * jnp.dot(mu0, Lambda0 @ mu0)
+    quad_p = 0.5 * jnp.sum(z * z)                      # = 1/2 mu_p' Lp mu_p
+    quad_0 = 0.5 * jnp.sum(mu0 * _mm(Lambda0, mu0))
     logdet_p = jnp.sum(jnp.log(jnp.diagonal(Cp)))      # = 1/2 log|Lp|
     if chol0_logdet is None:
         C0 = jnp.linalg.cholesky(Lambda0)
@@ -85,8 +95,8 @@ def sample_wishart(key, nu, S):
     chi2 = 2.0 * jax.random.gamma(k1, 0.5 * df)        # chi^2_{nu-i}
     A = jnp.tril(jax.random.normal(k2, (dim, dim), dtype=S.dtype), -1)
     A = A + jnp.diag(jnp.sqrt(chi2))
-    LA = Ls @ A
-    return LA @ LA.T
+    LA = _mm(Ls, A)
+    return _mm(LA, LA.T)
 
 
 def sample_invwishart(key, nu, Psi):
@@ -120,7 +130,7 @@ def niw_posterior(p: NIWParams, n, xbar, S):
     xbar = jnp.where(n > 0, xbar, p.mu0)
     mu_n = (p.kappa0 * p.mu0 + n * xbar) / kappa_n
     d = (xbar - p.mu0)[:, None]
-    Psi_n = p.Psi0 + S + (p.kappa0 * n / kappa_n) * (d @ d.T)
+    Psi_n = p.Psi0 + S + (p.kappa0 * n / kappa_n) * _mm(d, d.T)
     del safe_n
     return NIWParams(mu_n, kappa_n, nu_n, Psi_n)
 
@@ -130,7 +140,7 @@ def sample_niw(key, p: NIWParams):
     k1, k2 = jax.random.split(key)
     Sigma = sample_invwishart(k1, p.nu0, p.Psi0)
     C = jnp.linalg.cholesky(Sigma / p.kappa0)
-    mu = p.mu0 + C @ jax.random.normal(k2, p.mu0.shape, dtype=p.mu0.dtype)
+    mu = p.mu0 + _mm(C, jax.random.normal(k2, p.mu0.shape, dtype=p.mu0.dtype))
     return mu, Sigma
 
 
@@ -153,17 +163,6 @@ def crt_sample(key, y, r, max_y: int):
     """
     y = jnp.asarray(y)
     r = jnp.broadcast_to(jnp.asarray(r, jnp.float32), y.shape)
-
-    # Fused kernel on single-chip TPU (max_y rng/compare passes fuse to one
-    # VMEM loop); XLA path elsewhere and under a mesh.
-    import os
-    from pyglm_tpu.parallel.sharding import active_mesh, in_local_spmd
-    if (os.environ.get("PYGLM_PG_BACKEND") != "xla"
-            and jax.devices()[0].platform == "tpu"
-            and (len(jax.devices()) == 1 or in_local_spmd())):
-        if active_mesh() is None:
-            from pyglm_tpu.ops.pg_pallas import crt_sample_pallas
-            return crt_sample_pallas(key, y, r, max_y)
 
     def body(i, carry):
         l, key = carry

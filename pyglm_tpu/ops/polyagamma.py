@@ -1,10 +1,10 @@
-"""Polya-Gamma random variates, TPU-native.
+"""Polya-Gamma random variates on the accelerator.
 
 This module replaces the reference's native sampling layer
 (``pypolyagamma/cpp/PolyaGamma*.{h,cpp}`` — Devroye / alternate / saddlepoint
 C++ samplers fanned out with OpenMP in ``pypolyagamma.pyx (pgdrawvpar)``) with
 fully vectorized JAX samplers that draw *all* N*T auxiliary variables of a
-Gibbs sweep in one masked accept-reject pass on the VPU:
+Gibbs sweep in one masked, elementwise accept-reject pass:
 
 - :func:`pg_devroye` — exact PG(1, c) via Devroye's alternating-series
   rejection sampler for J*(1, z) (Polson–Scott–Windle 2013, Alg. 1),
@@ -69,8 +69,9 @@ def pg_var(b, c):
     b = jnp.asarray(b, jnp.float32)
     c = jnp.abs(jnp.asarray(c, jnp.float32))
     t = jnp.tanh(0.5 * c)
-    # The exact form cancels catastrophically for small c — and TPU tanh is
-    # only ~4e-6-accurate — so switch to the Taylor series below c = 0.6.
+    # The exact form cancels catastrophically for small c (and an f32 tanh
+    # is only ~1e-6-accurate there), so switch to the Taylor series below
+    # c = 0.6.
     small = c < 0.6
     num = 2.0 * t - c * (1.0 - t * t)      # = (sinh c - c)/cosh^2(c/2)
     exact = num / jnp.where(small, 1.0, 4.0 * c ** 3)
@@ -172,18 +173,14 @@ def _series_accept(key, X, active):
     return accept & active
 
 
-def pg_devroye(key, c, init=None):
+def pg_devroye(key, c):
     """Exact PG(1, c) draws, elementwise over any-shaped `c`.
 
-    TPU-native rebuild of ``PolyaGamma::draw`` (reference:
+    Vectorized rebuild of ``PolyaGamma::draw`` (reference:
     pypolyagamma/cpp/PolyaGamma.cpp): the scalar rejection loop becomes a
     masked ``lax.while_loop`` over the full batch; acceptance per round is
     >= 0.9992 uniformly in c, so the loop converges in ~3 rounds even for
     tens of millions of elements.
-
-    init: optional (omega0, done0) — continue a partially-completed draw
-    (e.g. the Pallas fast pass in ops/pg_pallas.py): elements with done0
-    keep omega0, the rest are (re)drawn here.
     """
     c = jnp.asarray(c, jnp.float32)
     z = 0.5 * jnp.abs(c)
@@ -219,12 +216,7 @@ def pg_devroye(key, c, init=None):
         done = done | acc
         return i + 1, key, X, done
 
-    if init is None:
-        X_init, done_init = fallback, jnp.zeros(shape, bool)
-    else:
-        omega0, done_init = init
-        X_init = jnp.where(done_init, 4.0 * omega0, fallback)
-    state = (jnp.zeros((), jnp.int32), key, X_init, done_init)
+    state = (jnp.zeros((), jnp.int32), key, fallback, jnp.zeros(shape, bool))
     _, _, X, _ = lax.while_loop(cond, body, state)
     return 0.25 * X
 
@@ -339,31 +331,10 @@ def pg_normal_approx(key, b, c):
     return jnp.maximum(x, 1e-30)
 
 
-# Sentinel default: "read the trace-time context" (active_mesh /
-# in_local_spmd). Distinct from None, which means "no mesh, not local".
-_READ_CONTEXT = object()
-
-# Trace-time record of which gamma-series implementation the last
-# _gamma_series_dispatch call compiled into ("pallas" | "xla" |
-# "shard_map_pallas" | "shard_map_xla") — a test hook so suites can assert
-# the intended kernel actually engaged (the SS analog is
-# models/weights.py LAST_SS_PATH).
-LAST_GAMMA_PATH = None
-
-
-def _mesh_shardable(c, mesh) -> bool:
-    from pyglm_tpu.parallel.sharding import lane_count
-    return (c.ndim == 2
-            and c.shape[0] % mesh.shape.get("time", 1) == 0
-            and c.shape[1] % lane_count(mesh) == 0)
-
-
 def _shard_map_elementwise(draw_fn, key, mesh, *arrs):
-    """Run an elementwise sampler per mesh shard via jax.shard_map.
-
-    A pallas_call inside a GSPMD-partitioned jit does not shard, so under a
-    mesh each device runs the kernel on its local (time, lanes) tile with
-    a per-shard fold of the key (SURVEY.md §2.4 comm row). The lane axis
+    """Run an elementwise sampler per mesh shard via jax.shard_map, with a
+    per-shard fold of the key (SURVEY.md §2.4 comm row), so every shard
+    draws its local (time, lanes) tile with no collectives. The lane axis
     shards over the mesh's lane axes — 'neuron' on a data mesh, jointly
     ('chain','neuron') on a composed chain-data mesh
     (parallel.sharding.lane_axes).
@@ -389,46 +360,25 @@ def _shard_map_elementwise(draw_fn, key, mesh, *arrs):
         out_specs=spec, check_vma=False)(key, *arrs)
 
 
-def pg_draw_unit(key, c, backend: str = "auto", mesh=_READ_CONTEXT,
-                 local=_READ_CONTEXT):
-    """PG(1, c) with automatic backend dispatch.
+def _sharded(mesh, *arrs) -> bool:
+    """Whether to draw per shard: a multi-device mesh whose time and lane
+    axes divide every (T, lanes) input."""
+    if mesh is None or mesh.devices.size == 1:
+        return False
+    from pyglm_tpu.parallel.sharding import lane_count
+    return all(a.ndim == 2 and a.shape[0] % mesh.shape.get("time", 1) == 0
+               and a.shape[1] % lane_count(mesh) == 0 for a in arrs)
 
-    "auto": the fused Pallas fast-pass + exact continuation on TPU — under
-    a multi-device mesh (parallel.sharding.active_mesh) the kernel runs
-    per-shard inside jax.shard_map; the pure-XLA masked-while sampler on
-    CPU (also per-shard under a CPU mesh, which is how the sharding tests
-    exercise the wrapper). Override with PYGLM_PG_BACKEND=xla|pallas.
 
-    mesh/local default to the trace-time context (active_mesh /
-    in_local_spmd); jitted callers that cache across contexts must pass
-    them explicitly as static arguments (see _polya_gamma_impl).
-    """
-    import os
-    from pyglm_tpu.parallel.sharding import active_mesh, in_local_spmd
-    if mesh is _READ_CONTEXT:
+def pg_draw_unit(key, c, mesh=None):
+    """PG(1, c): the exact Devroye sampler, run per shard inside
+    jax.shard_map when ``mesh`` (default: the trace-time active mesh,
+    parallel.sharding.active_mesh) spans several devices."""
+    if mesh is None:
+        from pyglm_tpu.parallel.sharding import active_mesh
         mesh = active_mesh()
-    if local is _READ_CONTEXT:
-        local = in_local_spmd()
-    env = os.environ.get("PYGLM_PG_BACKEND")
-    if env:
-        backend = env
-    devs = jax.devices()
-    on_tpu = devs[0].platform == "tpu"
-    if backend == "auto":
-        backend = "pallas" if on_tpu else "xla"
-    use_pallas = backend == "pallas" and on_tpu
-    if (mesh is not None and mesh.devices.size > 1
-            and _mesh_shardable(c, mesh)):
-        if use_pallas:
-            from pyglm_tpu.ops.pg_pallas import pg_devroye_pallas
-            return _shard_map_elementwise(pg_devroye_pallas, key, mesh, c)
+    if _sharded(mesh, c):
         return _shard_map_elementwise(pg_devroye, key, mesh, c)
-    # `local`: tracing inside a single-device shard_map body (chain-axis
-    # parallelism) — the direct kernel is safe, each shard IS one device.
-    if use_pallas and (len(devs) == 1 or local):
-        from pyglm_tpu.ops.pg_pallas import pg_devroye_pallas
-        return pg_devroye_pallas(key, c)
-    # Multi-device without a mesh context: GSPMD shards the XLA sampler.
     return pg_devroye(key, c)
 
 
@@ -451,18 +401,17 @@ def polya_gamma(key, b, c, method: str = "auto", K: int = 4):
       "gamma"   — gamma-series for all elements.
       "normal"  — normal approximation for all elements.
 
-    The sharding context (active mesh / local-spmd flag) is captured as a
-    STATIC jit argument, so traces made under different contexts can never
-    be served from each other's cache (same discipline as
-    weights.resample_spike_slab_tspace).
+    The active mesh is captured as a STATIC jit argument, so traces made
+    under different meshes can never be served from each other's cache
+    (same discipline as weights.resample_spike_slab_tspace).
     """
-    from pyglm_tpu.parallel.sharding import active_mesh, in_local_spmd
+    from pyglm_tpu.parallel.sharding import active_mesh
     return _polya_gamma_impl(key, b, c, method=method, K=K,
-                             mesh=active_mesh(), local=in_local_spmd())
+                             mesh=active_mesh())
 
 
-@partial(jax.jit, static_argnames=("method", "K", "mesh", "local"))
-def _polya_gamma_impl(key, b, c, method: str, K: int, mesh, local: bool):
+@partial(jax.jit, static_argnames=("method", "K", "mesh"))
+def _polya_gamma_impl(key, b, c, method: str, K: int, mesh):
     b = jnp.asarray(b, jnp.float32)
     c = jnp.asarray(c, jnp.float32)
     shape = jnp.broadcast_shapes(b.shape, c.shape)
@@ -472,7 +421,7 @@ def _polya_gamma_impl(key, b, c, method: str, K: int, mesh, local: bool):
     if method == "devroye":
         return pg_devroye(key, c)
     if method == "gamma":
-        return _gamma_series_dispatch(key, b, c, K, mesh, local)
+        return _gamma_series_dispatch(key, b, c, K, mesh)
     if method == "normal":
         return pg_normal_approx(key, b, c)
 
@@ -481,46 +430,18 @@ def _polya_gamma_impl(key, b, c, method: str, K: int, mesh, local: bool):
         b >= _NORMAL_CUTOFF,
         pg_normal_approx(k1, b, c),
         _gamma_series_dispatch(k2, jnp.minimum(b, _NORMAL_CUTOFF), c, K,
-                               mesh, local),
+                               mesh),
     )
     if method == "auto":
-        out = jnp.where(b == 1.0, pg_draw_unit(k3, c, mesh=mesh,
-                                               local=local), out)
+        out = jnp.where(b == 1.0, pg_draw_unit(k3, c, mesh=mesh), out)
     return jnp.where(b > 0, out, 0.0)
 
 
-def _gamma_series_dispatch(key, b, c, K, mesh=_READ_CONTEXT,
-                           local=_READ_CONTEXT):
-    """Fused Pallas gamma-series on TPU (kernel fixed at pg_pallas._GAMMA_K)
-    — per-shard inside jax.shard_map under a multi-device mesh — pure-XLA
-    otherwise. Same override env var and context rules as pg_draw_unit."""
-    import os
-    from pyglm_tpu.ops.pg_pallas import _GAMMA_K
-    from pyglm_tpu.parallel.sharding import active_mesh, in_local_spmd
-    if mesh is _READ_CONTEXT:
-        mesh = active_mesh()
-    if local is _READ_CONTEXT:
-        local = in_local_spmd()
-    env = os.environ.get("PYGLM_PG_BACKEND")
-    devs = jax.devices()
-    use_pallas = (env != "xla" and K == _GAMMA_K
-                  and devs[0].platform == "tpu")
-    global LAST_GAMMA_PATH
-    if (mesh is not None and mesh.devices.size > 1
-            and _mesh_shardable(c, mesh) and _mesh_shardable(b, mesh)):
-        if use_pallas:
-            from pyglm_tpu.ops.pg_pallas import pg_gamma_series_pallas
-            LAST_GAMMA_PATH = "shard_map_pallas"
-            return _shard_map_elementwise(
-                lambda k, bb, cc: pg_gamma_series_pallas(k, bb, cc, K=K),
-                key, mesh, b, c)
-        LAST_GAMMA_PATH = "shard_map_xla"
+def _gamma_series_dispatch(key, b, c, K, mesh):
+    """The gamma-series sampler, per shard inside jax.shard_map when the
+    mesh spans several devices (same rule as pg_draw_unit)."""
+    if _sharded(mesh, b, c):
         return _shard_map_elementwise(
             lambda k, bb, cc: pg_gamma_series(k, bb, cc, K=K),
             key, mesh, b, c)
-    if use_pallas and (len(devs) == 1 or local):
-        from pyglm_tpu.ops.pg_pallas import pg_gamma_series_pallas
-        LAST_GAMMA_PATH = "pallas"
-        return pg_gamma_series_pallas(key, b, c, K=K)
-    LAST_GAMMA_PATH = "xla"
     return pg_gamma_series(key, b, c, K=K)

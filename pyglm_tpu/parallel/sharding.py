@@ -1,4 +1,4 @@
-"""Multi-chip scaling via jax.sharding — the reference has no analog.
+"""Multi-device scaling via jax.sharding — the reference has no analog.
 
 The reference's only parallelism is OpenMP threads over PG draws inside one
 process (pypolyagamma.pyx pgdrawvpar). Here the Gibbs sweep is partitioned
@@ -9,7 +9,7 @@ over a 2-D device mesh (SURVEY.md §2.4 / §7 step 8):
   vmapped weight updates shard embarrassingly over postsynaptic neurons.
 - **time axis**: X'OmegaX / X'kappa / log-lik are associative sums over t,
   so time shards reduce partial stats with XLA-inserted collectives over
-  ICI (the SP analog — nothing here is quadratic in T).
+  the device interconnect (the SP analog — nothing here is quadratic in T).
 
 Everything goes through GSPMD: inputs carry NamedShardings and XLA chooses
 the collectives; no hand-written NCCL/MPI-style code (SURVEY.md §2.4).
@@ -24,11 +24,10 @@ from pyglm_tpu.models.sweep import GLMData, GLMState
 
 
 # --- active-mesh context -----------------------------------------------------
-# Pallas kernels cannot ride GSPMD (a pallas_call inside a partitioned jit
-# does not shard), so the kernel call sites (ops/polyagamma.py,
-# models/weights.py) consult the active mesh at trace time and wrap their
-# kernels in jax.shard_map over it — Pallas per shard on TPU, the XLA
-# fallback per shard elsewhere (how the CPU-mesh tests exercise the wrapper).
+# The samplers and the collapsed spike-and-slab update run as explicit
+# per-shard passes (jax.shard_map) under a mesh, so their call sites
+# (ops/polyagamma.py, models/weights.py) consult the active mesh at trace
+# time and wrap themselves in a shard_map over it.
 _ACTIVE_MESH: Mesh | None = None
 
 
@@ -39,32 +38,6 @@ def set_active_mesh(mesh: Mesh | None) -> None:
 
 def active_mesh() -> Mesh | None:
     return _ACTIVE_MESH
-
-
-# Trace-time flag: True while tracing the BODY of a shard_map whose shards
-# are single devices (the chain-parallel ensemble/tempering paths). Kernel
-# dispatchers that normally require len(jax.devices()) == 1 for a direct
-# pallas_call (a pallas_call under GSPMD does not shard) may use the direct
-# kernel here: inside shard_map each body executes on exactly one device.
-_LOCAL_SPMD = False
-
-
-def in_local_spmd() -> bool:
-    return _LOCAL_SPMD
-
-
-class local_spmd:
-    """Scoped trace-time marker for single-device shard_map bodies."""
-
-    def __enter__(self):
-        global _LOCAL_SPMD
-        self._prev = _LOCAL_SPMD
-        _LOCAL_SPMD = True
-
-    def __exit__(self, *exc):
-        global _LOCAL_SPMD
-        _LOCAL_SPMD = self._prev
-        return False
 
 
 def make_mesh(n_time: int = 1, n_neuron: int | None = None, devices=None) -> Mesh:

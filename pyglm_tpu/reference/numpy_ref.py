@@ -1,7 +1,7 @@
 """Trusted single-process NumPy re-implementation of the Gibbs sweep.
 
 Purpose (SURVEY.md §7 hard-part #5):
-1. an independent oracle for cross-checking the TPU implementation's math
+1. an independent oracle for cross-checking the JAX implementation's math
    (same conditionals, different code path, f64);
 2. the CPU-baseline denominator for bench.py — it mirrors the *reference's*
    architecture (per-neuron Python loop over regressions, per-edge sequential
@@ -137,8 +137,8 @@ def numpy_pg_gamma_series(rng, b, c, K=64):
     mean uses the closed form sum_{k>=1} 1/((k-1/2)^2 + y^2) =
     (pi / (2 y)) tanh(pi y); the tail second moment is summed numerically.
     At K=64 the tail's variance share is ~(1/K)^3 ~ 4e-6 — far inside the
-    MC tolerance of any chain-level comparison. Independent of the JAX/
-    Pallas kernels (different language, f64, different truncation depth).
+    MC tolerance of any chain-level comparison. Independent of the JAX
+    samplers (different language, f64, different truncation depth).
     """
     b = np.asarray(b, np.float64).ravel()
     c_flat = np.asarray(c, np.float64).ravel()

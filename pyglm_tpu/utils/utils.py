@@ -5,8 +5,31 @@ array hyperparameter broadcasting), re-expressed for JAX.
 """
 from __future__ import annotations
 
+import os
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+# <repo>/.jax_cache: the repository root holds the package directory.
+_REPO_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache for an entry point and
+    return its directory. Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX
+    already reads it and this sets no directory; otherwise the cache lives
+    at the fixed path ``<repo>/.jax_cache`` (listed in .gitignore), so that
+    every run of the repository's scripts finds the programs compiled
+    before. Call it before the first compilation."""
+    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not cache:
+        cache = _REPO_CACHE
+        jax.config.update("jax_compilation_cache_dir", cache)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return cache
 
 
 def logistic(x):

@@ -1,32 +1,23 @@
-"""Geweke joint-distribution tests that ENGAGE the hot Pallas kernels on
-real TPU: the fully-fused spike-and-slab kernel (Bernoulli lane, VERDICT
-r3 weak #4) and — round 5 — the count path (NB and Binomial lanes, VERDICT
-r4 next #3): the shared-proposal gamma-series PG kernel plus the
-collapsed count-table CRT dispersion update.
+"""Geweke joint-distribution tests of the Gibbs sweep as the GPU runs it.
 
-The CPU Geweke suite runs at N=3, T=50 where `_tspace_impl` never takes the
-fused path, so the in-kernel hardware-PRNG collapsed-edge scan's exactness
-evidence was parity-only (z-protocol vs the staged path, chain-level vs the
-f64 oracle). This lane runs the successive-conditional simulator at a
-fused-eligible shape (N=8, B=4 -> GB=32, T=384, precision='high') and
-asserts the same prior-marginal gates as the CPU suite — a bug in the
-in-kernel edge conditionals (acceptance probability, collapsed evidence,
-PRNG use) shows up as stationary-marginal drift that no parity test can
-mask. Runs only on real TPU (PYGLM_TEST_TPU=1), like the PG kernel suite.
+The CPU Geweke suite (tests/test_geweke.py) runs at N=3, T=50 on XLA's CPU
+backend. This lane runs the successive-conditional simulator on the card at
+a larger shape (N=8, B=4, T=384, precision='high', transposed design
+registered as add_data does) for the three PG families — Bernoulli
+(Devroye PG(1, psi)), negative binomial (gamma-series PG(y + r, psi) plus
+the collapsed count-table CRT dispersion update) and Binomial (PG(5, psi))
+— and asserts the same prior-marginal gates as the CPU suite. A bug in a
+conditional as the GPU compiles it (its f32 dot algorithms, its sampler
+lowering) shows up as stationary-marginal drift that no parity test can
+mask. Run with `python -m pytest tests/ -m gpu` on a machine with a GPU.
 
 With T=384 informative observations the conditionals concentrate, so the
 chain walks the prior more slowly than the N=3/T=50 CPU configs; gates
 discount n_eff by the measured integrated autocorrelation time of each
 series rather than assuming the thinned draws are independent.
 """
-import os
-
 import numpy as np
 import pytest
-
-if not os.environ.get("PYGLM_TEST_TPU"):
-    pytest.skip("TPU-only lane (set PYGLM_TEST_TPU=1)",
-                allow_module_level=True)
 
 import jax
 
@@ -35,27 +26,11 @@ from pyglm_tpu.models.observations import Bernoulli
 from pyglm_tpu.models.networks import ErdosRenyiConfig
 from pyglm_tpu.diagnostics.geweke import geweke_chain
 
+pytestmark = pytest.mark.gpu
+
 N, B, L, T = 8, 4, 10, 384
 N_ITERS = 4000
 BURN = 500
-
-
-def _reset_path_markers():
-    """Reset the trace-time kernel-path markers AND drop the in-process jit
-    caches of the nested-jitted dispatchers that set them. The markers fire
-    when the dispatcher's Python body runs, i.e. at TRACE time — but
-    `weights._tspace_impl` and `polyagamma._polya_gamma_impl` are jitted
-    themselves, so a later sweep with an identical (shape, static-arg)
-    signature is served from the jit cache without re-running the body,
-    leaving the marker stale (the NB/Binomial lanes share the Bernoulli
-    lane's _tspace_impl signature). Clearing the traces forces a re-trace;
-    the persistent compile cache keeps the recompile cheap."""
-    import pyglm_tpu.models.weights as weights_mod
-    import pyglm_tpu.ops.polyagamma as pg_mod
-    weights_mod.LAST_SS_PATH = None
-    pg_mod.LAST_GAMMA_PATH = None
-    weights_mod._tspace_impl.clear_cache()
-    pg_mod._polya_gamma_impl.clear_cache()
 
 
 def _tau_int(x, c=5.0):
@@ -77,24 +52,20 @@ def _z(mean_emp, mean_true, var_true, n_eff):
 
 
 @pytest.fixture(scope="module")
-def fused_chain():
-    import pyglm_tpu.models.weights as weights_mod
+def bern_chain(gpu):
     basis = cosine_basis(B=B, L=L)
     obs = Bernoulli()
     net = ErdosRenyiConfig(
         N=N, B=B, rho_init=0.4, learn_rho=False, learn_weight_prior=False,
         sigma_w=0.25, mu_bias=-1.5, sigma_bias=0.3)
-    _reset_path_markers()
     series = geweke_chain(jax.random.key(7), obs, net, N, B, basis, T,
                           spike_slab=True, n_iters=N_ITERS, t_chunk=384,
                           precision="high", with_xt=True)
-    # The whole point of this lane: the FUSED kernel must have compiled in.
-    assert weights_mod.LAST_SS_PATH == "fused", weights_mod.LAST_SS_PATH
     return series, net
 
 
-def test_fused_geweke_bias_marginal(fused_chain):
-    series, net = fused_chain
+def test_bern_geweke_bias_marginal(bern_chain):
+    series, net = bern_chain
     b = series["bias"][BURN:]                        # (n, N)
     tau = max(_tau_int(b.mean(axis=1)), 1.0)
     n_eff = b.shape[0] * N / tau
@@ -103,8 +74,8 @@ def test_fused_geweke_bias_marginal(fused_chain):
     assert abs(b.var() / net.sigma_bias ** 2 - 1) < 0.3, (b.var(), tau)
 
 
-def test_fused_geweke_adjacency_marginal(fused_chain):
-    series, net = fused_chain
+def test_bern_geweke_adjacency_marginal(bern_chain):
+    series, net = bern_chain
     dens = series["A_density"][BURN:]
     tau = max(_tau_int(dens), 1.0)
     n_eff = dens.shape[0] * N * N / tau
@@ -114,17 +85,13 @@ def test_fused_geweke_adjacency_marginal(fused_chain):
 
 
 @pytest.fixture(scope="module")
-def nb_fused_chain():
-    """Count path on chip (VERDICT r4 next #3): NB observations at a
-    fused-eligible shape, with BOTH the transposed design (fused
-    spike-and-slab kernel) and the LL cache (collapsed count-table CRT r
-    update — the flagship NB model's post-add_data path) registered. The
-    per-sweep PG draws are PG(y + r, psi) via method='real', so the
-    shared-proposal gamma-series Pallas kernel
-    (ops/pg_pallas.py::pg_gamma_series_pallas) runs inside the
-    joint-distribution test rather than only its KS grids."""
-    import pyglm_tpu.models.weights as weights_mod
-    import pyglm_tpu.ops.polyagamma as pg_mod
+def nb_chain(gpu):
+    """Count path on the card: NB observations with BOTH the transposed
+    design and the LL cache (collapsed count-table CRT r update — the
+    flagship NB model's post-add_data path) registered. The per-sweep PG
+    draws are PG(y + r, psi) via method='real', so the gamma-series sampler
+    runs inside the joint-distribution test rather than only its KS
+    grids."""
     from pyglm_tpu.models.observations import NegativeBinomial
 
     basis = cosine_basis(B=B, L=L)
@@ -134,20 +101,17 @@ def nb_fused_chain():
     # probability is ~1e-3/iteration (measured: y saturates the generator's
     # 1e6 lam clamp, the f32 weight update overflows, and the NaN poisons r
     # for the rest of the chain — reproduced identically on CPU/XLA and
-    # TPU/Pallas, so a config instability, not a kernel bug). The config
+    # on two accelerator backends, so a config instability, not a sampler
+    # bug). The config
     # below measured y_max <= ~30 over the full 4000-iteration chain.
     obs = NegativeBinomial(r_init=2.0, resample_r=True, a_r=a_r, b_r=b_r,
                            max_y=128)
     net = ErdosRenyiConfig(
         N=N, B=B, rho_init=0.25, learn_rho=False, learn_weight_prior=False,
         sigma_w=0.004, mu_bias=-2.0, sigma_bias=0.2)
-    _reset_path_markers()
     series = geweke_chain(jax.random.key(11), obs, net, N, B, basis, T,
                           spike_slab=True, n_iters=N_ITERS, t_chunk=384,
                           precision="high", with_xt=True, with_llc=True)
-    # Both hot kernels must actually have compiled in.
-    assert weights_mod.LAST_SS_PATH == "fused", weights_mod.LAST_SS_PATH
-    assert pg_mod.LAST_GAMMA_PATH == "pallas", pg_mod.LAST_GAMMA_PATH
     # Loud guard for the two silent chain-killers: an autoregressive
     # runaway (y_max ~ 1e6) and a violated count-table bound (y > max_y
     # biases the collapsed-CRT r update with no error under tracing).
@@ -156,8 +120,8 @@ def nb_fused_chain():
     return series, net, (a_r, b_r)
 
 
-def test_nb_fused_geweke_bias_marginal(nb_fused_chain):
-    series, net, _ = nb_fused_chain
+def test_nb_geweke_bias_marginal(nb_chain):
+    series, net, _ = nb_chain
     b = series["bias"][BURN:]
     tau = max(_tau_int(b.mean(axis=1)), 1.0)
     n_eff = b.shape[0] * N / tau
@@ -166,12 +130,12 @@ def test_nb_fused_geweke_bias_marginal(nb_fused_chain):
     assert abs(b.var() / net.sigma_bias ** 2 - 1) < 0.3, (b.var(), tau)
 
 
-def test_nb_fused_geweke_r_marginal(nb_fused_chain):
+def test_nb_geweke_r_marginal(nb_chain):
     """The learned dispersion must keep its Gamma(a_r, b_r) prior as the
     stationary marginal — the collapsed-CRT seating counts, the conjugate
     gamma draw, AND the PG(y+r) draws that shape psi all sit inside this
     loop; a bias in any of them drifts r off its prior."""
-    series, _, (a_r, b_r) = nb_fused_chain
+    series, _, (a_r, b_r) = nb_chain
     r = series["r"][BURN:]                           # (n, N)
     m_true, v_true = a_r / b_r, a_r / b_r ** 2
     tau = max(_tau_int(r.mean(axis=1)), 1.0)
@@ -181,8 +145,8 @@ def test_nb_fused_geweke_r_marginal(nb_fused_chain):
     assert abs(r.var() / v_true - 1) < 0.35, (r.var(), tau)
 
 
-def test_nb_fused_geweke_adjacency_marginal(nb_fused_chain):
-    series, net, _ = nb_fused_chain
+def test_nb_geweke_adjacency_marginal(nb_chain):
+    series, net, _ = nb_chain
     dens = series["A_density"][BURN:]
     tau = max(_tau_int(dens), 1.0)
     n_eff = dens.shape[0] * N * N / tau
@@ -192,12 +156,10 @@ def test_nb_fused_geweke_adjacency_marginal(nb_fused_chain):
 
 
 @pytest.fixture(scope="module")
-def binom_fused_chain():
-    """Binomial (n_trials=5) on chip: every auxiliary draw is
+def binom_chain(gpu):
+    """Binomial (n_trials=5) on the card: every auxiliary draw is
     PG(5, psi) through the integer-b gamma-series dispatch — the constant-b
     regime the NB config (b = y + r, data-dependent) never pins down."""
-    import pyglm_tpu.models.weights as weights_mod
-    import pyglm_tpu.ops.polyagamma as pg_mod
     from pyglm_tpu.models.observations import Binomial
 
     basis = cosine_basis(B=B, L=L)
@@ -205,17 +167,14 @@ def binom_fused_chain():
     net = ErdosRenyiConfig(
         N=N, B=B, rho_init=0.4, learn_rho=False, learn_weight_prior=False,
         sigma_w=0.05, mu_bias=-1.0, sigma_bias=0.3)
-    _reset_path_markers()
     series = geweke_chain(jax.random.key(12), obs, net, N, B, basis, T,
                           spike_slab=True, n_iters=N_ITERS, t_chunk=384,
                           precision="high", with_xt=True)
-    assert weights_mod.LAST_SS_PATH == "fused", weights_mod.LAST_SS_PATH
-    assert pg_mod.LAST_GAMMA_PATH == "pallas", pg_mod.LAST_GAMMA_PATH
     return series, net
 
 
-def test_binom_fused_geweke_bias_marginal(binom_fused_chain):
-    series, net = binom_fused_chain
+def test_binom_geweke_bias_marginal(binom_chain):
+    series, net = binom_chain
     b = series["bias"][BURN:]
     tau = max(_tau_int(b.mean(axis=1)), 1.0)
     n_eff = b.shape[0] * N / tau
@@ -224,8 +183,8 @@ def test_binom_fused_geweke_bias_marginal(binom_fused_chain):
     assert abs(b.var() / net.sigma_bias ** 2 - 1) < 0.3, (b.var(), tau)
 
 
-def test_binom_fused_geweke_adjacency_marginal(binom_fused_chain):
-    series, net = binom_fused_chain
+def test_binom_geweke_adjacency_marginal(binom_chain):
+    series, net = binom_chain
     dens = series["A_density"][BURN:]
     tau = max(_tau_int(dens), 1.0)
     n_eff = dens.shape[0] * N * N / tau
@@ -234,8 +193,8 @@ def test_binom_fused_geweke_adjacency_marginal(binom_fused_chain):
     assert z < 5.0, (dens.mean(), tau, z)
 
 
-def test_fused_geweke_weight_marginal(fused_chain):
-    series, net = fused_chain
+def test_bern_geweke_weight_marginal(bern_chain):
+    series, net = bern_chain
     wsq = series["W_sq"][BURN:]
     nact = series["n_active"][BURN:]
     # Active weights are iid N(0, sigma_w) under the prior: per-coefficient

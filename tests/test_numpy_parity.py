@@ -1,4 +1,4 @@
-"""End-to-end posterior parity: the TPU-native Gibbs sampler vs the
+"""End-to-end posterior parity: the JAX Gibbs sampler vs the
 independent NumPy/f64 reference implementation on the SAME data and priors.
 
 This is the operative substitute for reference-pyglm posterior parity
@@ -29,7 +29,7 @@ def test_posterior_means_match_numpy_reference():
 
     n_burn, n_keep = 150, 400
 
-    # --- TPU-native chain ---------------------------------------------
+    # --- JAX chain ---------------------------------------------
     model = pt.SparseBernoulliGLM(
         N, basis=basis, seed=0,
         net_kwargs=dict(rho_init=rho, learn_rho=False, mu_bias=mu_b,
@@ -85,7 +85,7 @@ def test_posterior_means_match_numpy_reference_nb():
 
     n_burn, n_keep = 150, 400
 
-    # --- TPU-native chain ---------------------------------------------
+    # --- JAX chain ---------------------------------------------
     model = pt.SparseNegativeBinomialGLM(
         N, basis=basis, seed=0,
         obs_kwargs=dict(r_init=2.0, a_r=a_r, b_r=b_r, max_y=64),
@@ -165,7 +165,7 @@ def test_posterior_means_match_numpy_reference_gaussian():
 
     n_burn, n_keep = 200, 800
 
-    # --- TPU-native chains (two seeds, pooled) ---------------------------
+    # --- JAX chains (two seeds, pooled) ---------------------------
     A1 = np.zeros((N, N)); W1 = np.zeros((N, N)); b1 = np.zeros(N)
     e1 = np.zeros(N)
     seeds1 = (0, 1)
@@ -245,7 +245,7 @@ def test_posterior_means_match_numpy_reference_binomial():
 
     n_burn, n_keep = 150, 400
 
-    # --- TPU-native chains (two seeds, pooled; scanned driver — eager
+    # --- JAX chains (two seeds, pooled; scanned driver — eager
     # per-sweep dispatch at this tiny shape costs ~100x the sweep) ---------
     import jax
     import jax.numpy as jnp
@@ -332,7 +332,7 @@ def test_posterior_means_match_numpy_reference_sbm():
 
     n_burn, n_keep = 200, 600
 
-    # --- TPU-native chains (two seeds, pooled; scanned driver — the eager
+    # --- JAX chains (two seeds, pooled; scanned driver — the eager
     # per-sweep dispatch at this tiny shape costs ~100x the sweep) ---------
     import jax
     import jax.numpy as jnp
@@ -431,7 +431,7 @@ def test_posterior_means_match_numpy_reference_latent_distance():
 
     n_burn, n_keep = 200, 600
 
-    # --- TPU-native chains (two seeds, pooled; scanned driver — the eager
+    # --- JAX chains (two seeds, pooled; scanned driver — the eager
     # per-sweep dispatch at this tiny shape costs ~100x the sweep) ---------
     import jax
     import jax.numpy as jnp
@@ -527,7 +527,7 @@ def test_posterior_means_match_numpy_reference_multinomial():
 
     n_burn, n_keep = 100, 400
 
-    # --- TPU-native chain -------------------------------------------------
+    # --- JAX chain -------------------------------------------------
     reg = MultinomialRegression(K, D_in, seed=0)
     A1 = np.zeros((K - 1, D_in)); b1 = np.zeros(K - 1)
     pi1 = np.zeros((T, K))
@@ -578,7 +578,7 @@ def test_posterior_means_match_numpy_reference_dense_niw():
               niw_kappa0=1.0, niw_psi0=1.0)
     n_burn, n_keep = 150, 400
 
-    # --- TPU-native chain -------------------------------------------------
+    # --- JAX chain -------------------------------------------------
     model = pt.BernoulliGLM(N, basis=basis, seed=0, net_kwargs=nk)
     model.add_data(Y)
     W1 = np.zeros((N, N)); b1 = np.zeros(N)
